@@ -1,0 +1,354 @@
+"""Stage-structured decoder for the attention stacks of this slice.
+
+Counterpart of ``repro/models/model.py``.  Params are a plain nested dict
+with the reference's tree layout: ``embed``, ``final_norm``, optional
+``lm_head``, and ``stages[i][j]`` — one dict per period entry of stage i,
+every leaf stacked along a leading ``[count]`` axis.  Caches mirror the
+same structure.
+
+Entry points (plain functions of ``(cfg, params, ...)``):
+
+  * ``prefill``      — forward over a prompt + emit the KV caches;
+  * ``decode_step``  — one token with caches.
+
+Only attention layers (``attn``, and windowed ``local``/SWA ones in these
+two entry points) with dense MLPs are ported; recurrent, SSM, MoE and
+encoder-decoder stacks and ``forward_train`` are queued in ROADMAP.md.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .config import LayerSpec, ModelConfig
+from .layers import attention, mlp, rms_norm, rope
+
+
+def _dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return _dtype(cfg.param_dtype)
+
+
+def _cdt(cfg: ModelConfig) -> torch.dtype:
+    return _dtype(cfg.compute_dtype)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder stacks are not ported yet "
+            f"(ROADMAP.md § A)")
+    for st in cfg.stages():
+        for spec in st.period:
+            if spec.kind not in ("attn", "local") or spec.moe:
+                raise NotImplementedError(
+                    f"{cfg.name}: layer kind {spec.kind!r}"
+                    f"{' (MoE)' if spec.moe else ''} is not ported yet; "
+                    f"recurrent, SSM and MoE stacks are queued in "
+                    f"ROADMAP.md § A5")
+
+
+# --------------------------------------------------------------------------
+# parameter init
+# --------------------------------------------------------------------------
+class _Init:
+    """Draws N(0, 1)·scale leaves from one ``torch.Generator``."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device):
+        self.gen = gen
+        self.device = device
+
+    def normal(self, shape, scale: float, dtype) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.gen, device=self.device,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    def zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+
+def _init_attn(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    s = d ** -0.5
+    p = {
+        "wq": ini.normal((n, d, H * hd), s, dtype),
+        "wk": ini.normal((n, d, KV * hd), s, dtype),
+        "wv": ini.normal((n, d, KV * hd), s, dtype),
+        "wo": ini.normal((n, H * hd, d), (H * hd) ** -0.5, dtype),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ini.zeros((n, H * hd), dtype)
+        p["bk"] = ini.zeros((n, KV * hd), dtype)
+        p["bv"] = ini.zeros((n, KV * hd), dtype)
+    if cfg.qk_norm:
+        p["q_norm"] = ini.zeros((n, hd), torch.float32)
+        p["k_norm"] = ini.zeros((n, hd), torch.float32)
+    return p
+
+
+def _init_mlp(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    p = {"w1": ini.normal((n, d, ff), d ** -0.5, dtype),
+         "w2": ini.normal((n, ff, d), ff ** -0.5, dtype)}
+    if cfg.act == "swiglu":
+        p["w3"] = ini.normal((n, d, ff), d ** -0.5, dtype)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Union[str, torch.device] = "cuda") -> Dict:
+    """Random params with the reference's shapes, scales and tree layout,
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+    The values differ from the reference's ``jax.random`` draws; tests
+    that compare the two packages bridge the reference's params with
+    :func:`params_from_numpy` instead."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    ini = _Init(gen, dev)
+    dtype = _dt(cfg)
+    d = cfg.d_model
+    params: Dict[str, Any] = {
+        "embed": ini.normal((cfg.vocab, d), d ** -0.5, dtype),
+        "final_norm": ini.zeros((d,), torch.float32),
+        "stages": [],
+    }
+    for st in cfg.stages():
+        entries = []
+        for _ in st.period:
+            n = st.count
+            entries.append({
+                "ln1": ini.zeros((n, d), torch.float32),
+                "attn": _init_attn(cfg, ini, n, dtype),
+                "ln2": ini.zeros((n, d), torch.float32),
+                "mlp": _init_mlp(cfg, ini, n, dtype),
+            })
+        params["stages"].append(entries)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ini.normal((d, cfg.vocab), d ** -0.5, dtype)
+    return params
+
+
+def params_from_numpy(tree, device: Union[str, torch.device] = "cuda"):
+    """The weight bridge: a params tree whose leaves are numpy arrays (the
+    reference's ``init_params`` output converted leaf by leaf) → the same
+    nesting of torch tensors on ``device``, bytes unchanged."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    return conv(tree)
+
+
+# --------------------------------------------------------------------------
+# caches
+# --------------------------------------------------------------------------
+def _cache_len(spec: LayerSpec, cfg: ModelConfig, max_len: int) -> int:
+    w = spec.window or cfg.window
+    return min(w, max_len) if w else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Union[str, torch.device] = "cuda") -> List:
+    """Per stage, per period entry: ``{"k", "v"}`` of
+    ``[count, batch, n_kv, S_cache, head_dim]`` zeros."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = (_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype
+             else _cdt(cfg))
+    out = []
+    for st in cfg.stages():
+        stage_c = []
+        for spec in st.period:
+            S = _cache_len(spec, cfg, max_len)
+            shape = (st.count, batch, cfg.n_kv, S, cfg.head_dim)
+            stage_c.append({
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        out.append(stage_c)
+    return out
+
+
+# --------------------------------------------------------------------------
+# layer application
+# --------------------------------------------------------------------------
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    """x [B, S, d] → q [B, H, S, hd], k/v [B, KV, S, hd] (qk-norm, RoPE)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd).transpose(1, 2)
+    k = k.reshape(B, S, KV, hd).transpose(1, 2)
+    v = v.reshape(B, S, KV, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _self_attn_full(spec: LayerSpec, cfg: ModelConfig, p,
+                    x: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over the whole sequence (prefill)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
+    window = spec.window or cfg.window
+    o = attention(q, k, v, causal=True, window=window,
+                  chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
+                  p_bf16=cfg.attn_p_bf16,
+                  causal_groups=cfg.attn_causal_groups)
+    return o.transpose(1, 2).reshape(B, S, -1) @ p["wo"]
+
+
+def _self_attn_decode(spec: LayerSpec, cfg: ModelConfig, p,
+                      x: torch.Tensor, cache: Dict, pos: int):
+    """One-token decode against a ring (window) or linear cache.  The
+    cache tensors are updated in place (the reference returns new ones)."""
+    B = x.shape[0]
+    q, k, v = _qkv(cfg, p, x, torch.full((1,), pos, device=x.device))
+    ck, cv = cache["k"], cache["v"]
+    S_c = ck.shape[2]
+    window = spec.window or cfg.window
+    slot = (pos % S_c) if window else min(pos, S_c - 1)
+    ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
+    cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
+    n_valid = min(pos + 1, S_c)
+    kv_valid = (torch.arange(S_c, device=x.device)[None] < n_valid
+                ).expand(B, S_c)
+    o = attention(q, ck, cv, causal=False, window=0, kv_valid=kv_valid)
+    o = o.transpose(1, 2).reshape(B, 1, -1)
+    return o @ p["wo"], {"k": ck, "v": cv}
+
+
+def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, p, h: torch.Tensor,
+                cache: Dict) -> Dict:
+    """Recompute K/V for the cache at prefill (window layers keep the ring
+    tail)."""
+    B, S, _ = h.shape
+    _, k, v = _qkv(cfg, p, h, torch.arange(S, device=h.device))
+    S_c = cache["k"].shape[2]
+    window = spec.window or cfg.window
+    ck = torch.zeros_like(cache["k"])
+    cv = torch.zeros_like(cache["v"])
+    if window and S >= S_c:
+        # ring buffer: the last S_c tokens land at slots pos % S_c
+        idx = torch.arange(S - S_c, S, device=h.device) % S_c
+        ck[:, :, idx] = k[:, :, S - S_c:].to(ck.dtype)
+        cv[:, :, idx] = v[:, :, S - S_c:].to(cv.dtype)
+    else:
+        n = min(S, S_c)
+        ck[:, :, :n] = k[:, :, :n].to(ck.dtype)
+        cv[:, :, :n] = v[:, :, :n].to(cv.dtype)
+    return {"k": ck, "v": cv}
+
+
+def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
+                mode: str, cache: Optional[Dict] = None,
+                pos: Optional[int] = None):
+    """mode: 'prefill' | 'decode'.  Returns (x, new_cache)."""
+    if spec.kind not in ("attn", "local") or spec.moe:
+        raise NotImplementedError(
+            f"layer kind {spec.kind!r} is not ported yet (ROADMAP.md § A5)")
+    new_cache: Dict[str, Any] = {}
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        o, kv = _self_attn_decode(spec, cfg, p["attn"], h, cache, pos)
+        new_cache.update(kv)
+    elif mode == "prefill":
+        o = _self_attn_full(spec, cfg, p["attn"], h)
+        new_cache.update(_prefill_kv(spec, cfg, p["attn"], h, cache))
+    else:
+        raise NotImplementedError(
+            f"mode {mode!r}: training is not ported yet (ROADMAP.md § A13)")
+    x = x + o
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp(p["mlp"], h2, cfg.act)
+    return x.to(_cdt(cfg)), new_cache
+
+
+def _layer_params(tree, j: int):
+    """Slice layer ``j`` out of a ``[count, ...]``-stacked params subtree."""
+    if isinstance(tree, dict):
+        return {k: _layer_params(v, j) for k, v in tree.items()}
+    return tree[j]
+
+
+# --------------------------------------------------------------------------
+# stage loop
+# --------------------------------------------------------------------------
+def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
+               mode: str, caches, pos: Optional[int] = None,
+               stage_list=None):
+    """Run every stage's period ``count`` times (a Python loop where the
+    reference scans).  ``caches`` is updated in place — prefill writes each
+    layer's recomputed K/V into it, decode writes the new token — and
+    returned: (x, caches)."""
+    stage_list = stage_list or cfg.stages()
+    for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
+        for j in range(stage.count):
+            for i, spec in enumerate(stage.period):
+                cc = _layer_params(caches[si][i], j)
+                x, nc = apply_layer(spec, cfg, _layer_params(sp[i], j), x,
+                                    mode=mode, cache=cc, pos=pos)
+                if mode == "prefill":
+                    for name, t in nc.items():
+                        cc[name].copy_(t)
+    return x, caches
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    return params["embed"][tokens].to(_cdt(cfg))
+
+
+def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return (x @ head.to(x.dtype)).float()
+
+
+def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int
+            ) -> Tuple[torch.Tensor, List]:
+    """batch["tokens"] [B, S] → (last-position logits [B, 1, V], caches)."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    x = _embed_tokens(cfg, params, tokens)
+    caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    x, caches = run_stages(cfg, params["stages"], x, mode="prefill",
+                           caches=caches)
+    return _logits(cfg, params, x[:, -1:]), caches
+
+
+def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor,
+                pos: int) -> Tuple[torch.Tensor, List]:
+    """token [B, 1] int; pos int → (logits [B, 1, V], caches).  The cache
+    tensors are updated in place and returned."""
+    x = _embed_tokens(cfg, params, token)
+    x, caches = run_stages(cfg, params["stages"], x, mode="decode",
+                           caches=caches, pos=int(pos))
+    return _logits(cfg, params, x), caches

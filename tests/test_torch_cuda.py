@@ -1,0 +1,153 @@
+"""Port tests that need an NVIDIA GPU (marker ``cuda``; they skip without
+one).  This file imports only torch, numpy and ``repro_torch``, so it also
+runs on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+  * the hand-written paged-attention kernel agrees with both plain twins
+    on the test grid and the main path's shape (fp32, 1e-5: the same math
+    summed in another order);
+  * junk pages past seq_len cannot change the output; seq_len 0 gives 0;
+  * the wrapper refuses what the kernel does not take, and a CUDA engine
+    refuses the plain twin;
+  * the engine's decode horizon enqueues work only: no host sync under
+    ``torch.cuda.set_sync_debug_mode("error")``, and its logits match the
+    CPU engine's.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.paged_attention import ops, paged_attention
+from repro_torch.launch.serve import serve_config
+from repro_torch.models.model import init_params
+from repro_torch.serve.engine import PagedEngine, batched_paged_attention
+
+pytestmark = pytest.mark.cuda
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(S, n_kv, g, d, ps, n_pages, width, lens, seed, device):
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((S, n_kv, g, d)) / np.sqrt(d)).astype(np.float32)
+    k = rng.standard_normal((n_pages, ps, n_kv, d)).astype(np.float32)
+    v = rng.standard_normal((n_pages, ps, n_kv, d)).astype(np.float32)
+    pt = np.stack([rng.choice(np.arange(1, n_pages), width, replace=False)
+                   for _ in range(S)]).astype(np.int32)
+    ln = np.asarray(lens, np.int32)
+    return [torch.from_numpy(x).to(device) for x in (q, k, v, pt, ln)]
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("ps", [2, 4])
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("gqa", [(2, 3), (1, 4), (4, 1), (2, 2)])
+def test_kernel_matches_plain_on_grid(dev, gqa, d, ps, splits):
+    n_kv, g = gqa
+    q, k, v, pt, ln = _inputs(5, n_kv, g, d, ps, 12, 10, [0, 1, 5, 16, 31],
+                              seed=d * 10 + ps, device=dev)
+    out = paged_attention(q, k, v, pt, ln, 8, splits=splits)
+    torch.testing.assert_close(out, ops._plain(q, k, v, pt, ln, 8), **TOL)
+    torch.testing.assert_close(
+        out, batched_paged_attention(q, k, v, pt, ln, 8), **TOL)
+    assert out[0].abs().max().item() == 0.0          # seq_len 0 → zeros
+
+
+@pytest.mark.parametrize("lens", [[0, 1, 7, 8], [9, 255, 256, 17]])
+def test_kernel_matches_plain_at_main_path_shape(dev, lens):
+    q, k, v, pt, ln = _inputs(4, 8, 2, 128, 8, 129, 34, lens, seed=3,
+                              device=dev)
+    out = paged_attention(q, k, v, pt, ln, 32)
+    torch.testing.assert_close(
+        out, batched_paged_attention(q, k, v, pt, ln, 32), **TOL)
+
+
+def test_kernel_ignores_garbage_pages(dev):
+    q, k, v, pt, ln = _inputs(1, 1, 2, 4, 2, 6, 4, [3], seed=0, device=dev)
+    pt2 = pt.clone()
+    pt2[0, 2:] = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+    assert torch.equal(paged_attention(q, k, v, pt, ln, 4),
+                       paged_attention(q, k, v, pt2, ln, 4))
+
+
+def test_kernel_counts_launches_and_rejects_bad_inputs(dev):
+    q, k, v, pt, ln = _inputs(2, 2, 2, 16, 4, 12, 8, [3, 9], seed=1,
+                              device=dev)
+    before = paged_attention.launches
+    paged_attention(q, k, v, pt, ln, 8)
+    assert paged_attention.launches == before + 1
+    with pytest.raises(TypeError):
+        paged_attention(q.double(), k, v, pt, ln, 8)
+    with pytest.raises(TypeError):
+        paged_attention(q, k, v, pt.long(), ln, 8)
+    with pytest.raises(ValueError):
+        paged_attention(q.transpose(1, 2), k, v, pt, ln, 8)
+    with pytest.raises(ValueError):
+        paged_attention(q, k, v, pt, ln, 9)               # wider than pt
+    with pytest.raises(ValueError):
+        paged_attention(q, k, v, pt, ln.cpu(), 8)
+    with pytest.raises(ValueError):
+        paged_attention(q, k, v, pt, ln, 8, splits=9)     # 2 x 9 > 16 warps
+    assert paged_attention.launches == before + 1
+
+
+def test_cuda_engine_refuses_the_plain_twin(dev):
+    cfg = serve_config("qwen3-0.6b")
+    params = init_params(cfg, seed=0, device=dev)
+    with pytest.raises(ValueError, match="gather"):
+        PagedEngine(cfg, params, n_pages=9, page_size=4, max_seqs=2,
+                    attn_impl="gather", device=dev)
+
+
+def test_decode_horizon_is_sync_free_and_matches_cpu(dev):
+    cfg = serve_config("qwen3-0.6b")
+    params = init_params(cfg, seed=0, device=dev)
+    cpu_params = _to(params, torch.device("cpu"))
+    engines = {
+        "cuda": PagedEngine(cfg, params, n_pages=17, page_size=4,
+                            max_seqs=2, max_pages_per_seq=8, device=dev),
+        "cpu": PagedEngine(cfg, cpu_params, n_pages=17, page_size=4,
+                           max_seqs=2, max_pages_per_seq=8, device="cpu")}
+    blocks, logits = {}, {}
+    for name, eng in engines.items():
+        d = eng.device
+        for s in range(2):
+            eng.alloc.reserve_span(eng.alloc.alloc(s), 5, 8)
+        eng.prefill_chunk(
+            torch.tensor([[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]],
+                         dtype=torch.int32, device=d),
+            torch.full((2,), 5, dtype=torch.int32, device=d))
+        toks = torch.tensor([7, 8], dtype=torch.int32, device=d)
+        mask = torch.ones(2, dtype=torch.bool, device=d)
+        steps = torch.tensor([8, 5], dtype=torch.int32, device=d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            blocks[name] = eng.decode_many(toks, mask, steps, 8)
+        finally:
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+        blocks[name] = blocks[name].cpu()
+        logits[name] = eng.decode(toks, mask).cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(blocks["cuda"], blocks["cpu"])
+    assert (blocks["cuda"][5:, 1] == -1).all()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
