@@ -7,11 +7,14 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. card   — name and power limit (nvidia-smi), TF32 off for matmuls and
               cuDNN so float32 stays float32;
-  2. build  — compile the sm_90a paged-attention kernel from the sources in
-              this checkout and print ptxas' register/spill report;
-  3. kernel — hold the kernel against its plain twins on the test grid and
-              at the main path's shape, then time kernel, plain twin and a
-              library yardstick with CUDA events beside the byte bound;
+  2. build  — compile the three sm_90a kernel libraries (paged attention,
+              bit-plane transpose, SIMDRAM μProgram VM) from the sources in
+              this checkout, one nvcc each, all at once, and print ptxas'
+              register/spill report;
+  3. kernel — hold the paged-attention kernel against its plain twins on
+              the test grid and at the main path's shape, then time kernel,
+              plain twin and a library yardstick with CUDA events beside the
+              byte bound;
   4. serve  — full-width qwen3-0.6b (random weights from a seed) through
               ``repro_torch.launch.serve.main``: 6 requests, 4 slots, decode
               horizon 8, attention through the kernel.  Every request's
@@ -21,7 +24,25 @@ Phases (any failure exits non-zero and prints no result line):
               ``torch.cuda.set_sync_debug_mode("error")``; then one horizon
               is timed on the host clock and its device-busy time read
               from the profiler's kernel events;
-  5. result — a JSON line per kernel, the card line, and the ok line last.
+  5. transpose — the pack and unpack kernels bit-exact against their plain
+              versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
+              1/31/256/1000/2^20 elements, signed and unsigned, int32 and
+              int64 input);
+  6. vm     — the μProgram-VM kernel bit-exact against ``execute`` on the
+              card (16 ops x n 8/16 x both styles, 2^16 elements) and the
+              numpy ORACLES (16 ops at n=32 on 2^20 elements), across block
+              sizes, and the quickstart's AOIG-defined op end to end;
+  7. pipeline — bench_kernels' brightness kernel on 2^20 8-bit pixels:
+              pack x3 -> add -> gt -> if_else -> unpack through the kernels,
+              equal to np.minimum(img + 40, 127) & 0xFF, every launch
+              bit-exact against its plain version on its own inputs; launch
+              counts (pack 3, VM 3, unpack 1) and the ControlUnit's 16 Loop
+              Counter trips per bbop checked; the device-busy time of one
+              steady-state call, whose profiled launches must match the
+              counts;
+  8. timing — SIMDRAM kernels, plain versions and library yardsticks at
+              2^20 and 2^26 elements beside their bounds;
+  9. result — a JSON line per kernel, the card line, and the ok line last.
 
 Needs one CUDA card; exits with code 2 without one.
 """
@@ -32,6 +53,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 #: fp32 kernel vs fp32 plain twin: same math, different summation order
@@ -92,24 +114,31 @@ def _time_ms(torch, fn, iters: int = 100, warmup: int = 10):
 
 
 def _kernel_busy(torch, fn):
-    """(device-busy ms, kernels launched, top kernels) of one ``fn()`` from
-    the profiler's CUDA kernel events; (None, 0, []) if it saw none."""
+    """(device-busy ms, [(kernel name, launches, ms)] by device time) of
+    one ``fn()`` from the profiler's CUDA kernel events; (None, []) if it
+    saw none.  A first ``fn()`` runs in the profiler's warm-up step and is
+    not read: the tracer misses the first launches of the step it starts
+    in."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the step marker is an annotation on the device timeline, not a kernel
     kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        return None, 0, []
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return (busy_us / 1e3, sum(e.count for e in kernels),
-            [(e.key[:60], e.count, e.self_device_time_total / 1e3)
-             for e in top])
+        return None, []
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return busy_us / 1e3, [(e.key, e.count, e.self_device_time_total / 1e3)
+                           for e in kernels]
 
 
 def _pool(torch, gen, S, n_kv, g, d, ps, n_pages, width, seq_lens, dev):
@@ -300,8 +329,8 @@ def phase_sync_free(torch, engine, card):
     print(f"[sync] decode_many(K={k}) over {S} slots under "
           f"set_sync_debug_mode('error'): no host sync; block "
           f"{tuple(block.shape)}")
-    # steady-state cost of one horizon (3 more; the slots grow to 36
-    # tokens, 5 pages each, well inside the pool): host clock, then the
+    # steady-state cost of one horizon (4 more; the slots grow to 44
+    # tokens, 6 pages each, well inside the pool): host clock, then the
     # device-busy share from the profiler's kernel events
     def horizon():
         return engine.decode_many(toks, mask, steps, k)
@@ -312,7 +341,7 @@ def phase_sync_free(torch, engine, card):
     horizon()
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, n_kernels, top = _kernel_busy(torch, horizon)
+    busy_ms, kernels = _kernel_busy(torch, horizon)
     print(f"[horizon] {card}: decode_many(K={k}) over {S} slots, "
           f"{engine.geom.n_full} layers: {call_ms:.3f} ms on the host clock "
           f"({call_ms / k:.3f} ms per token step)")
@@ -320,6 +349,8 @@ def phase_sync_free(torch, engine, card):
         print("[horizon] device-busy time: not measured (the profiler saw "
               "no CUDA kernel events)")
     else:
+        n_kernels = sum(c for _, c, _ in kernels)
+        top = [(name[:60], c, ms) for name, c, ms in kernels[:5]]
         print(f"[horizon] profiled call: {n_kernels} kernels "
               f"({n_kernels / k:.0f} per token step), device busy "
               f"{busy_ms:.3f} ms, so the device idles "
@@ -327,6 +358,357 @@ def phase_sync_free(torch, engine, card):
               f"kernels by device time (name, count, ms): {top}")
     for blk in list(engine.alloc.blocks.values()):
         engine.alloc.free(blk)
+
+
+# -- SIMDRAM: transposition unit, μProgram VM, the brightness pipeline -------
+#: int32 non-tensor-core peak: 64 INT32 lanes per SM against the 128 FP32
+#: lanes (2 flops per FMA) behind the 67 TFLOP/s FP32 figure, i.e. a
+#: quarter of it (NVIDIA Hopper architecture white paper, SM diagram)
+INT32_OPS_PER_S = FP32_FLOP_PER_S / 4
+BRIGHT_DELTA, BRIGHT_CLIP = 40, 127
+#: elements: the repo's benchmark size (bench_throughput.py, bench_kernels.py;
+#: 16 rows of 65,536 lanes), the size of the execute cross-check, and the
+#: second timing size (1,024 rows, 256 MiB per 32-bit operand)
+FULL, CHECK, LARGE = 1 << 20, 1 << 16, 1 << 26
+
+
+def _p2(n):
+    return f"2^{n.bit_length() - 1}"
+
+
+def _exact(what, got, ref):
+    """Bit-exact agreement of two integer tensors; returns the max abs
+    difference of their values (0 or the phase fails)."""
+    if got.shape != ref.shape:
+        _fail(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err = (got.long() - ref.long()).abs().max().item() if got.numel() else 0
+    if err != 0:
+        _fail(f"{what}: kernel disagrees with its reference (max abs "
+              f"difference {err})")
+    return float(err)
+
+
+def _ints(np, n_bits, n, seed):
+    rng = np.random.default_rng(seed)
+    lo = -(1 << (n_bits - 1))
+    return rng.integers(lo, -lo, n)
+
+
+def phase_transpose(torch, np, tt, tbp, dev):
+    """Pack and unpack kernels against the plain versions and numpy, on the
+    reference test grid plus 2^20 elements, ragged tails included."""
+    worst, cases = 0.0, 0
+    for n_bits in (4, 8, 16, 32):
+        for n_elems in (1, 31, 256, 1000, FULL):
+            x = _ints(np, n_bits, n_elems, n_bits * 1000 + n_elems)
+            for signed in (True, False):
+                ref_np = tbp.pack_np(x, n_bits, signed, device="cpu")
+                ref_back = tbp.unpack_np(ref_np)
+                # unsigned, the round trip gives the low n_bits back
+                want = x if signed or n_bits == 32 else x & ((1 << n_bits) - 1)
+                for dtype in (torch.int32, torch.int64):
+                    xc = torch.from_numpy(x).to(dtype).to(dev)
+                    bp = tt.to_bitplanes(xc, n_bits, signed)
+                    what = (f"pack n_bits={n_bits} n_elems={n_elems} "
+                            f"signed={signed} {dtype}")
+                    worst = max(worst, _exact(what, bp.planes, tbp.pack(
+                        xc, n_bits, signed).planes))
+                    if not np.array_equal(bp.to_numpy(), ref_np.to_numpy()):
+                        _fail(f"{what}: kernel != pack_np")
+                    back = tt.from_bitplanes(bp)
+                    what = "un" + what
+                    worst = max(worst, _exact(what, back, tbp.unpack(bp)))
+                    # as 32-bit patterns: int32 cannot hold an unsigned
+                    # 32-bit value, which unpack_np gives as int64
+                    if not np.array_equal(back.cpu().numpy().view(np.uint32),
+                                          ref_back.astype(np.uint32)):
+                        _fail(f"{what}: kernel != unpack_np")
+                    _exact(f"round trip {what}", back.long(),
+                           torch.from_numpy(want).to(dev))
+                    cases += 1
+    print(f"[transpose] {cases} cases (n_bits 4/8/16/32 x n_elems "
+          f"1/31/256/1000/{_p2(FULL)} x signed/unsigned x int32/int64 "
+          f"input): pack and unpack kernels == plain versions == "
+          f"pack_np/unpack_np, round trip exact")
+    return worst
+
+
+def _op_inputs(np, op, n, size, seed):
+    from repro_torch.core import OPS
+    spec = OPS[op]
+    rng = np.random.default_rng(seed)
+    if n == 32:                 # bench_throughput.py's operands
+        a = rng.integers(-2**30, 2**30, size)
+        b = rng.integers(1, 2**30, size)
+        s = rng.integers(0, 2, size)
+        return {1: [a], 2: [a, b], 3: [s, a, b]}[spec.n_inputs]
+    ins = [_ints(np, n, size, seed + k) for k in range(spec.n_inputs)]
+    if spec.n_inputs == 3:
+        ins[0] = rng.integers(0, 2, size)
+    return ins
+
+
+def phase_vm(torch, np, tt, vm, tc, dev):
+    """VM kernel against ``execute`` on the card (16 ops, n 8/16, both
+    styles, 2^16 elements), against the numpy ORACLES at n=32 on 2^20
+    elements, across block sizes, and the quickstart op."""
+    worst, t0 = 0.0, time.perf_counter()
+    for style in ("simdram", "ambit"):
+        for n in (8, 16):
+            for op in tc.PAPER_16:
+                spec = tc.OPS[op]
+                bps = [tc.pack_np(x, n, device=dev) for x in
+                       _op_inputs(np, op, n, CHECK, n)]
+                got = tc.apply_op(op, *bps, style=style)
+                prog = tc.get_uprogram(op, n, style)
+                ref = tc.execute(prog, dict(zip(
+                    spec.input_names, [bp.planes for bp in bps])),
+                    bps[0].n_words, out_bits=spec.out_bits(n))
+                worst = max(worst, _exact(f"vm {op} n={n} {style}",
+                                          got.planes, ref))
+    print(f"[vm] 16 ops x n 8/16 x simdram/ambit on {_p2(CHECK)} elements: VM "
+          f"kernel == execute on the card ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n, size = 32, FULL
+    for op in tc.PAPER_16:
+        ins = _op_inputs(np, op, n, size, 1)
+        bps = [tt.to_bitplanes(torch.from_numpy(x).to(dev), n) for x in ins]
+        out = tc.apply_op(op, *bps)
+        bits = out.n_bits
+        got = tt.from_bitplanes(tc.BitPlaneArray(out.planes, size, False))
+        got = got.cpu().numpy().view(np.uint32).astype(np.uint64)
+        ref = np.asarray(tc.ORACLES[op](*ins, n), np.uint64)
+        ref &= np.uint64((1 << bits) - 1)
+        if not np.array_equal(got, ref):
+            bad = int(np.flatnonzero(got != ref)[0])
+            _fail(f"vm {op} n=32 on {_p2(size)} elements: element {bad} is "
+                  f"{got[bad]}, oracle {ref[bad]}")
+    print(f"[vm] 16 ops at n=32 on {_p2(size)} elements (mul, div "
+          f"included): VM "
+          f"kernel == numpy ORACLES over every element "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for op in ("add", "mul", "div"):
+        bps = [tt.to_bitplanes(torch.from_numpy(x).to(dev), 32)
+               for x in _op_inputs(np, op, 32, size, 2)]
+        outs = [vm.simdram_op(op, *bps, block_words=bw).planes
+                for bw in (32, 128, 1024)]
+        for bw, o in zip((128, 1024), outs[1:]):
+            _exact(f"vm {op} block_words {bw} vs 32", o, outs[0])
+    print("[vm] add/mul/div at n=32: block_words 32, 128 and 1024 give the "
+          "same planes")
+    from repro_torch.examples import quickstart
+    res = quickstart.main(device=dev)
+    A, B, M = res["inputs"]
+    if not np.array_equal(res["xor_mask"], (A ^ B) & M):
+        _fail("quickstart xor_mask on the card")
+    print(f"[vm] quickstart xor_mask (AOIG {res['naive_size']} -> MIG "
+          f"{res['mig_size']} MAJ, depth {res['mig_depth']}, "
+          f"{len(res['uops'])} uops per bit) through pack -> VM -> unpack "
+          f"on the card == (A ^ B) & M")
+    return worst
+
+
+def phase_pipeline(torch, np, tt, vm, tc, tbp, dev, card):
+    """bench_kernels' brightness kernel on 2^20 8-bit pixels through the
+    kernels: pack -> add -> gt -> if_else -> unpack.  In 8-bit two's
+    complement img + 40 passes 127 exactly when the sum reads negative
+    (img < 216), so gt(0, sum) is the clip predicate; it is widened to 8
+    planes with zero planes, since apply_op takes operands of one width.
+    Returns the launches of one call and each kernel's max abs difference
+    from its plain version on this call's own inputs."""
+    from repro_torch.core.subarray import ROW_BITS
+    n, size = 8, FULL
+    img = np.random.default_rng(0).integers(0, 200, size)
+    host = [torch.from_numpy(v.astype(np.int32)).to(dev) for v in
+            (img, np.full(size, BRIGHT_DELTA), np.full(size, BRIGHT_CLIP))]
+    zero = tc.BitPlaneArray(torch.zeros((n, -(-size // 32)),
+                                        dtype=torch.int32, device=dev),
+                            size)
+
+    def brightness():
+        pix, delta, clip = packed = [tt.to_bitplanes(x, n) for x in host]
+        s = tc.apply_op("add", pix, delta)
+        over = tc.apply_op("gt", zero, s)
+        sel = tc.BitPlaneArray(torch.cat([over.planes, zero.planes[1:]]),
+                               size)
+        out = tc.apply_op("if_else", sel, clip, s)
+        unsigned = tc.BitPlaneArray(out.planes, size, False)
+        res = tt.from_bitplanes(unsigned)
+        return res, packed, unsigned, (("add", (pix, delta), s),
+                                       ("gt", (zero, s), over),
+                                       ("if_else", (sel, clip, s), out))
+
+    torch.cuda.synchronize()
+    tt.to_bitplanes.launches = tt.from_bitplanes.launches = 0
+    vm.run_uprogram.launches = 0
+    t0 = time.perf_counter()
+    res, packed, unsigned, bbops = brightness()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"bitplane_pack": tt.to_bitplanes.launches,
+                "simdram_vm": vm.run_uprogram.launches,
+                "bitplane_unpack": tt.from_bitplanes.launches}
+    want = {"bitplane_pack": 3, "simdram_vm": 3, "bitplane_unpack": 1}
+    if launches != want:
+        _fail(f"pipeline launches {launches}, expected {want}")
+    ref = np.minimum(img + BRIGHT_DELTA, BRIGHT_CLIP) & 0xFF
+    if not np.array_equal(res.cpu().numpy(), ref):
+        _fail("brightness pipeline != np.minimum(img + 40, 127) & 0xFF")
+    # every kernel launch of the call against its plain version on the
+    # same inputs (the VM never writes its inputs back, so they still hold)
+    errs = {"bitplane_pack": max(
+        _exact(f"pipeline pack {k}", bp.planes, tbp.pack(x, n).planes)
+        for k, (x, bp) in enumerate(zip(host, packed))),
+        "bitplane_unpack": _exact("pipeline unpack (unsigned)", res,
+                                  tbp.unpack(unsigned))}
+    errs["simdram_vm"] = max(
+        _exact(f"pipeline VM {op}", got.planes, tc.execute(
+            tc.get_uprogram(op, n), dict(zip(
+                tc.OPS[op].input_names, [x.planes for x in srcs])),
+            zero.n_words, out_bits=tc.OPS[op].out_bits(n)))
+        for op, srcs, got in bbops)
+    cu = tc.ControlUnit()
+    for op, srcs, _ in bbops:
+        cu.register(tc.get_uprogram(op, n))
+        cu.enqueue(tc.BbopRequest(op, srcs, n))
+    recs = cu.drain()
+    trips = -(-size // ROW_BITS)          # 16 Loop Counter trips at 2^20
+    if [r["trips"] for r in recs] != [trips] * 3:
+        _fail(f"ControlUnit trips {recs}, expected {trips} each")
+    print(f"[pipeline] {card}: brightness on {_p2(size)} 8-bit pixels, "
+          f"pack x3 -> add -> gt -> if_else -> unpack: == np.minimum(img + "
+          f"40, 127) & 0xFF over every pixel; each launch == its plain "
+          f"version on its own inputs (pack, execute, unpack); launches "
+          f"{launches}; ControlUnit {recs} stats {cu.stats}; first call "
+          f"{first_ms:.3f} ms on the host clock (lowering included)")
+    # steady state: host clock per call, then device-busy time from the
+    # profiler's kernel events, which must show every launch of the call
+    call_ms = _calls_ms(torch, brightness, iters=20)
+    busy_ms, kernels = _kernel_busy(torch, brightness)
+    if busy_ms is None:
+        _fail("the profiler saw no CUDA kernel events in the pipeline")
+    seen = {name: sum(c for k, c, _ in kernels if f"::{fn}" in k)
+            for name, fn in (("bitplane_pack", "pack_kernel"),
+                             ("simdram_vm", "simdram_vm_kernel"),
+                             ("bitplane_unpack", "unpack_kernel"))}
+    if seen != launches:
+        _fail(f"the profiler saw launches {seen}, the wrappers counted "
+              f"{launches}")
+    top = [(name[:60], c, ms) for name, c, ms in kernels]
+    print(f"[pipeline] {card}: steady state {call_ms:.5f} ms per call on "
+          f"the host clock; profiled call: "
+          f"{sum(c for _, c, _ in kernels)} kernels ({seen} of the port's, "
+          f"as counted), device busy {busy_ms:.5f} ms, so the device idles "
+          f"{1 - busy_ms / call_ms:.1%} of an unprofiled call; kernels "
+          f"(name, count, ms): {top}")
+    return launches, errs
+
+
+def _calls_ms(torch, fn, iters=3):
+    """Host-clock ms per call, ending in a synchronize: for a plain
+    version that issues thousands of small launches, which no launch
+    queue holds, so device time cannot be isolated."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _kernel_ms(torch, fn):
+    """Device ms of ``fn`` with ``_time_ms``, the count set so that the
+    timed calls take about 0.3 s."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    return _time_ms(torch, fn, iters=max(5, min(100, int(300 / once))),
+                    warmup=2)[0]
+
+
+def _bound(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
+    """Kernel, plain version and library yardstick at 2^20 and 2^26
+    elements; returns the rows at the main path's shapes (2^20, 8 bits)."""
+    rows = {}
+    for size in (FULL, LARGE):
+        nw = -(-size // 32)
+        tag = _p2(size)
+        rng = np.random.default_rng(3)
+        a = torch.from_numpy(rng.integers(-2**30, 2**30, size,
+                                          dtype=np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(1, 2**30, size,
+                                          dtype=np.int32)).to(dev)
+        cond = torch.from_numpy(rng.integers(0, 2, size, dtype=np.int32)
+                                ).to(dev)
+        for n_bits in (8, 32):
+            bp = tt.to_bitplanes(a, n_bits)
+            io = 4 * size + 4 * n_bits * nw
+            for name, fn, plain in (
+                    ("bitplane_pack", lambda: tt.to_bitplanes(a, n_bits),
+                     lambda: tbp.pack(a, n_bits)),
+                    ("bitplane_unpack", lambda: tt.from_bitplanes(bp),
+                     lambda: tbp.unpack(bp))):
+                ms = _kernel_ms(torch, fn)
+                plain_ms = _kernel_ms(torch, plain) if size == FULL \
+                    else None
+                bound_ms, by = _bound(io, 0)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=by, library_ms=None)
+                print(f"[timing] {card}: {name} n_bits={n_bits} {tag}: "
+                      f"kernel {ms:.5f} ms, plain "
+                      f"{'-' if plain_ms is None else f'{plain_ms:.5f}'} "
+                      f"ms, bound {bound_ms:.5f} ms ({by}: {io} B), "
+                      f"library none")
+                if size == FULL and n_bits == 8:
+                    rows[name] = row
+        library = {"add": lambda: torch.add(a, b),
+                   "gt": lambda: torch.gt(a, b),
+                   "relu": lambda: torch.relu(a),
+                   "if_else": lambda: torch.where(mask, a, b),
+                   "mul": lambda: torch.mul(a, b), "bitcount": None}
+        mask = cond.bool()
+        cases = [(op, 32, library[op]) for op in library]
+        if size == FULL:                   # the main path's first bbop,
+            a8, b8 = a.to(torch.int8), b.to(torch.int8)    # on 8-bit ints
+            cases.insert(0, ("add", 8, lambda: torch.add(a8, b8)))
+        for op, n, lib_fn in cases:
+            spec = tc.OPS[op]
+            srcs = {1: [a], 2: [a, b], 3: [cond, a, b]}[spec.n_inputs]
+            bps = [tt.to_bitplanes(x, n) for x in srcs]
+            prog = tc.get_uprogram(op, n)
+            planes = [x.planes for x in bps]
+            ms = _kernel_ms(torch, lambda: vm.simdram_op(op, *bps))
+            plain_ms = None
+            if size == FULL:
+                plain_ms = _calls_ms(torch, lambda: tc.execute(
+                    prog, dict(zip(spec.input_names, planes)), nw,
+                    out_bits=spec.out_bits(n)))
+            lib_ms = _kernel_ms(torch, lib_fn) if lib_fn else None
+            n_uops = len(prog.flatten())
+            io = 4 * nw * (n * spec.n_inputs + spec.out_bits(n))
+            bound_ms, by = _bound(io, n_uops * nw)
+            print(f"[timing] {card}: simdram_vm {op} n={n} {tag} "
+                  f"({n_uops} uops): kernel {ms:.5f} ms, plain (execute, "
+                  f"host clock per call) "
+                  f"{'-' if plain_ms is None else f'{plain_ms:.3f}'} ms, "
+                  f"bound {bound_ms:.5f} ms ({by}: {io} B, {n_uops * nw} "
+                  f"LOP3), library "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms on int{n}'}")
+            if size == FULL and n == 8:
+                rows["simdram_vm"] = dict(ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=by,
+                                          library_ms=lib_ms)
+    return rows
 
 
 def main() -> int:
@@ -338,7 +720,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch.nn.functional as F
 
+    import numpy as np
+
+    from repro_torch import core as tc
+    from repro_torch.core import bitplane as tbp
+    from repro_torch.kernels import bitplane_transpose as tt
     from repro_torch.kernels.paged_attention import build_kernel, ops
+    from repro_torch.kernels.simdram_vm import ops as vm
     from repro_torch.serve.engine import batched_paged_attention
 
     pa = ops.paged_attention
@@ -355,9 +743,12 @@ def main() -> int:
           f"CUDA {torch.version.cuda} | TF32 off for matmul and cuDNN")
 
     t0 = time.perf_counter()
-    lib, log = build_kernel()
-    print(f"[build] {lib} in {time.perf_counter() - t0:.1f} s; nvcc "
-          f"-Xptxas -v:\n{log.strip()}")
+    with ThreadPoolExecutor(3) as pool:        # one nvcc per source at once
+        builds = list(pool.map(lambda build: build(), (
+            build_kernel, tt.build_kernel, vm.build_kernel)))
+    for lib, log in builds:
+        print(f"[build] {lib}; nvcc -Xptxas -v:\n{log.strip()}")
+    print(f"[build] 3 libraries in {time.perf_counter() - t0:.1f} s")
 
     max_err = phase_kernel(torch, pa, ops, batched_paged_attention, dev)
     timing = phase_timing(torch, F, pa, batched_paged_attention, dev, 19)
@@ -365,13 +756,38 @@ def main() -> int:
 
     launches, engine = phase_serve(torch, pa, card)
     phase_sync_free(torch, engine, card)
+    del engine
+    torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    errs = {"bitplane_pack": phase_transpose(torch, np, tt, tbp, dev)}
+    errs["bitplane_unpack"] = errs["bitplane_pack"]
+    errs["simdram_vm"] = phase_vm(torch, np, tt, vm, tc, dev)
+    simdram_launches, path_errs = phase_pipeline(torch, np, tt, vm, tc, tbp,
+                                                 dev, card)
+    errs = {k: max(v, path_errs[k]) for k, v in errs.items()}
+    rows = phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card)
+    print(f"[simdram] phases took {time.perf_counter() - t0:.1f} s")
+
+    csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
+    simdram = [
+        ("bitplane_pack", csrc.format("bitplane_transpose",
+                                      "bitplane_transpose"),
+         "src/repro/kernels/bitplane_transpose/kernel.py:22"),
+        ("bitplane_unpack", csrc.format("bitplane_transpose",
+                                        "bitplane_transpose"),
+         "src/repro/kernels/bitplane_transpose/kernel.py:31"),
+        ("simdram_vm", csrc.format("simdram_vm", "simdram_vm"),
+         "src/repro/kernels/simdram_vm/kernel.py:26")]
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                  "paged_attention.cu",
+        "source": csrc.format("paged_attention", "paged_attention"),
         "replaces": "src/repro/kernels/paged_attention/kernel.py:27",
-        "launches": launches, "max_abs_err": max_err, **timing}]}))
+        "launches": launches, "max_abs_err": max_err, **timing}] + [{
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": simdram_launches[name],
+            "max_abs_err": errs[name], "bit_exact": errs[name] == 0.0,
+            **rows[name]} for name, source, replaces in simdram]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

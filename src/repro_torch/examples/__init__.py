@@ -1,0 +1,2 @@
+"""Runnable walk-throughs of the port
+(``python -m repro_torch.examples.<name>``)."""

@@ -7,74 +7,38 @@ launches the kernel — or raises; on a CPU tensor it runs the plain twin
 sequence at a time).  There is no fallback from one to the other.
 
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C entry point, loaded with ``ctypes``.  The
-library lands in ``build/kernels/<hash>/`` at the repository root, keyed by
-a hash of the source and the compiler flags, so an edited source rebuilds
-and an unchanged one is reused.
+shared library with a plain C entry point, loaded with ``ctypes``, by the
+port's shared builder (``repro_torch.kernels._build``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from .. import _build
 from .ref import ref_paged_attention
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: largest head_dim (8 elements per lane) and warps per block the kernel
 #: takes; a block holds group x splits warps
 MAX_HEAD_DIM = 256
 MAX_WARPS = 16
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the paged-attention kernel is "
-                           "built from source with the CUDA toolkit")
-    return path
-
-
 def build_kernel() -> Tuple[Path, str]:
     """Compile the kernel library if this source and these flags have not
     been built yet.  Returns (library path, compiler log); the log holds
     ``ptxas`` register, shared-memory and spill counts."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / digest
-    lib = out_dir / "libpaged_attention.so"
-    log = out_dir / "build.log"
-    if lib.exists() and log.exists():
-        return lib, log.read_text()
-    nvcc = _nvcc()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".tmp-{os.getpid()}.so"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{text}")
-    log.write_text(text)
-    os.replace(tmp, lib)            # atomic: concurrent builds agree
-    return lib, text
+    return _build.build(SOURCE, "paged_attention")
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _ = build_kernel()
-    lib = ctypes.CDLL(str(path))
+    lib = _build.load(SOURCE, "paged_attention")
     fn = lib.repro_paged_attention_f32
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, i, p]

@@ -12,16 +12,27 @@ runs on a machine without JAX:
     refuses the plain twin;
   * the engine's decode horizon enqueues work only: no host sync under
     ``torch.cuda.set_sync_debug_mode("error")``, and its logits match the
-    CPU engine's.
+    CPU engine's;
+  * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
+    their plain versions (ragged tails, both styles, every block size),
+    their wrappers refuse what the kernels do not take, and a CUDA
+    ``apply_op`` goes through the VM kernel and never through ``execute``.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import core as tc
+from repro_torch.core import bitplane as tbp
+from repro_torch.examples import quickstart
+from repro_torch.kernels import bitplane_transpose as tt
 from repro_torch.kernels.paged_attention import ops, paged_attention
+from repro_torch.kernels.simdram_vm import ops as vm
 from repro_torch.launch.serve import serve_config
 from repro_torch.models.model import init_params
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
+
+from _torch_simdram_cases import hand_program
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +162,132 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# -- SIMDRAM: transposition unit and μProgram VM -----------------------------
+def _ints(n_bits, n, seed):
+    rng = np.random.default_rng(seed)
+    lo = -(1 << (n_bits - 1))
+    return rng.integers(lo, -lo, n)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n_elems", [1, 31, 32, 33, 1000, 4097])
+@pytest.mark.parametrize("n_bits", [1, 4, 8, 16, 32])
+def test_transpose_kernels_match_plain(dev, n_bits, n_elems, dtype, signed):
+    x = torch.from_numpy(_ints(max(n_bits, 2), n_elems, n_bits * n_elems))
+    if dtype == torch.int64:
+        x = x + (7 << 40)                       # high word must not matter
+    xc = x.to(dtype).to(dev)
+    bp = tt.to_bitplanes(xc, n_bits, signed)
+    ref = tbp.pack(x, n_bits, signed)
+    assert torch.equal(bp.planes.cpu(), ref.planes)
+    np.testing.assert_array_equal(
+        bp.to_numpy(),
+        tbp.pack_np(x.numpy(), n_bits, signed, "cpu").to_numpy())
+    back = tt.from_bitplanes(bp)
+    assert torch.equal(back.cpu(), tbp.unpack(ref))
+    if n_bits == 32 and dtype == torch.int32:
+        assert torch.equal(back, xc)            # round trip
+
+
+def _case(op, n, size, seed):
+    spec = tc.OPS[op]
+    rng = np.random.default_rng(seed)
+    lo = -(1 << (n - 1))
+    ins = [rng.integers(lo, -lo, size) for _ in range(spec.n_inputs)]
+    if spec.n_inputs == 3:
+        ins[0] = rng.integers(0, 2, size)
+    return ins
+
+
+@pytest.mark.parametrize("style", ["simdram", "ambit"])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("op", ["add", "gt", "relu", "bitcount", "if_else",
+                                "mul", "div"])
+def test_vm_kernel_matches_execute(dev, op, n, style):
+    spec = tc.OPS[op]
+    ins = _case(op, n, 1000, seed=n)
+    bps = [tc.pack_np(x, n, device=dev) for x in ins]
+    prog = tc.get_uprogram(op, n, style)
+    planes = [bp.planes for bp in bps]
+    ref = tc.execute(prog, dict(zip(spec.input_names, planes)),
+                     bps[0].n_words, out_bits=spec.out_bits(n))
+    for bw in (1, 32, 128, 1024):
+        got = vm.run_uprogram(prog, planes, spec.input_names,
+                              spec.out_bits(n), block_words=bw)
+        assert torch.equal(got, ref), f"block_words={bw}"
+    for bp, x in zip(bps, ins):                 # inputs never written
+        np.testing.assert_array_equal(tc.unpack_np(bp), x)
+
+
+def test_vm_kernel_at_64_bits_and_on_a_hand_program(dev):
+    ins = _case("add", 64, 300, seed=64)
+    bps = [tc.pack_np(x, 64, device=dev) for x in ins]
+    out = tc.apply_op("add", *bps)
+    np.testing.assert_array_equal(
+        tc.unpack_np(out).astype(np.uint64),
+        tc.ORACLES["add"](*ins, 64).astype(np.uint64))
+    # six-row copies, ~DCC writes, reads past an input's width, an input
+    # row overwritten and an OUT bit never written
+    prog = hand_program()
+    a = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 1 << 32, (2, 3), dtype=np.uint64).astype(np.uint32).view(
+            np.int32)).to(dev)
+    a0 = a.clone()
+    ref = tc.execute(prog, {"A": a}, 3, out_bits=4)
+    assert torch.equal(vm.run_uprogram(prog, [a], ["A"], 4), ref)
+    assert torch.equal(a, a0)
+
+
+def test_simdram_wrappers_count_and_refuse(dev):
+    x = torch.arange(100, dtype=torch.int32, device=dev)
+    before = (tt.to_bitplanes.launches, tt.from_bitplanes.launches,
+              vm.run_uprogram.launches)
+    bp = tt.to_bitplanes(x, 8)
+    tt.from_bitplanes(bp)
+    vm.simdram_op("relu", bp)
+    assert (tt.to_bitplanes.launches, tt.from_bitplanes.launches,
+            vm.run_uprogram.launches) == tuple(b + 1 for b in before)
+    with pytest.raises(TypeError):
+        tt.to_bitplanes(x.to(torch.int16), 8)
+    with pytest.raises(ValueError):
+        tt.to_bitplanes(x[::2], 8)                        # non-contiguous
+    with pytest.raises(TypeError):
+        tt.from_bitplanes(tbp.BitPlaneArray(bp.planes.float(), 100))
+    wide = tbp.BitPlaneArray(torch.zeros((8, 8), dtype=torch.int32,
+                                         device=dev), 100)
+    with pytest.raises(ValueError):
+        tt.from_bitplanes(tbp.BitPlaneArray(wide.planes[:, ::2], 100))
+    prog = tc.get_uprogram("add", 8)
+    planes = [bp.planes, bp.planes]
+    with pytest.raises(ValueError):                       # device mix
+        vm.run_uprogram(prog, [bp.planes, bp.planes.cpu()], ("A", "B"), 8)
+    with pytest.raises(TypeError):
+        vm.run_uprogram(prog, [bp.planes, bp.planes.long()], ("A", "B"), 8)
+    with pytest.raises(ValueError):                       # non-contiguous
+        vm.run_uprogram(prog, [wide.planes[:, ::2], wide.planes[:, ::2]],
+                        ("A", "B"), 8)
+    with pytest.raises(ValueError):
+        vm.run_uprogram(prog, planes, ("A",), 8)
+    assert (tt.to_bitplanes.launches, tt.from_bitplanes.launches,
+            vm.run_uprogram.launches) == tuple(b + 1 for b in before)
+
+
+def test_cuda_path_never_runs_the_plain_versions(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    monkeypatch.setattr(vm, "execute", refuse)
+    monkeypatch.setattr(tt.ops, "pack", refuse)
+    monkeypatch.setattr(tt.ops, "unpack", refuse)
+    before = vm.run_uprogram.launches
+    a, b = (tc.pack_np(_ints(16, 64, s), 16, device=dev) for s in (1, 2))
+    out = tc.apply_op("max", a, b)
+    assert vm.run_uprogram.launches == before + 1
+    assert out.planes.is_cuda
+    res = quickstart.main(device=dev)
+    np.testing.assert_array_equal(res["xor_mask"],
+                                  np.bitwise_xor(*res["inputs"][:2])
+                                  & res["inputs"][2])
+    assert vm.run_uprogram.launches == before + 3
