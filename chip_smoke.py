@@ -7,10 +7,10 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. card   — name and power limit (nvidia-smi), TF32 off for matmuls and
               cuDNN so float32 stays float32;
-  2. build  — compile the three sm_90a kernel libraries (paged attention,
-              bit-plane transpose, SIMDRAM μProgram VM) from the sources in
-              this checkout, one nvcc each, all at once, and print ptxas'
-              register/spill report;
+  2. build  — compile the four sm_90a kernel libraries (paged attention,
+              bit-plane transpose, SIMDRAM μProgram VM, bit-serial matmul)
+              from the sources in this checkout, one nvcc each, all at once,
+              and print ptxas' register/spill report;
   3. kernel — hold the paged-attention kernel against its plain twins on
               the test grid and at the main path's shape, then time kernel,
               plain twin and a library yardstick with CUDA events beside the
@@ -42,7 +42,20 @@ Phases (any failure exits non-zero and prints no result line):
               counts;
   8. timing — SIMDRAM kernels, plain versions and library yardsticks at
               2^20 and 2^26 elements beside their bounds;
-  9. result — a JSON line per kernel, the card line, and the ok line last.
+  9. bsmm   — the bit-serial matmul kernel bit-exact against its plain
+              version on the test grid, ragged and unaligned shapes, the
+              decode batches M = 1 and 4, and both main-path shapes;
+ 10. qlm    — the bit-plane quantized LM at qwen2.5-3b's published widths
+              (36 layers, random weights from seed 0) through
+              ``repro_torch.examples.simdram_quantized_lm.main``: 108 FFN
+              matrices as 8-bit planes, dense and bit-plane forwards on
+              SyntheticLMData(4 x 32); 108 kernel launches per quantized
+              forward, its logits equal to the same forward through the
+              plain version, perplexities, drift (< 5%) and bytes; the
+              device-busy time of each forward; kernel, plain version and
+              ``torch._int_mm`` timed at both main-path shapes beside the
+              bound;
+ 11. result — a JSON line per kernel, the card line, and the ok line last.
 
 Needs one CUDA card; exits with code 2 without one.
 """
@@ -62,9 +75,11 @@ from pathlib import Path
 ATOL = RTOL = 1e-5
 #: reference top-two logit gap under which a greedy pick is a numerical tie
 TIE_GAP = 1e-4
-#: H100 SXM memory rate and float32 (non-tensor-core) peak
+#: H100 SXM memory rate, float32 (non-tensor-core) and int8 tensor-core
+#: peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 
 SERVE_ARGV = ["--no-smoke", "--arch", "qwen3-0.6b", "--attn-impl", "kernel",
               "--requests", "6", "--max-new", "16", "--batch-slots", "4",
@@ -711,6 +726,146 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
     return rows
 
 
+# -- the bit-serial matmul and the bit-plane quantized LM ----------------------
+#: (M, K, N): the test grid, ragged shapes, the decode batches M = 1 and 4
+#: and the main path's FFN shapes (w1/w3, then w2) at qwen2.5-3b's widths
+BSMM_GRID = [(128, 128, 128), (256, 128, 384), (5, 70, 33), (70, 130, 40)]
+BSMM_MAIN = [(128, 2048, 11008), (128, 11008, 2048)]
+BSMM_DECODE = [(m, k, n) for m in (1, 4) for _, k, n in BSMM_MAIN]
+
+
+def _bsmm_operands(torch, gen, M, K, N, n_bits, dev):
+    x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(0, 2, (n_bits, K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    return x, w
+
+
+def phase_bsmm(torch, bs, bs_ref, dev):
+    """The kernel against its plain version on the card, bit for bit."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cases = [(s, nb) for s in BSMM_GRID[:3] for nb in (2, 4, 8)]
+    cases += [(BSMM_GRID[3], nb) for nb in range(1, 9)]
+    cases += [(s, 8) for s in BSMM_DECODE + BSMM_MAIN]
+    worst = 0.0
+    for (M, K, N), nb in cases:
+        x, w = _bsmm_operands(torch, gen, M, K, N, nb, dev)
+        worst = max(worst, _exact(f"bsmm M={M} K={K} N={N} n_bits={nb}",
+                                  bs.bsmm_raw(x, w),
+                                  bs_ref.ref_bsmm_raw(x, w)))
+    # rows off 4-byte boundaries are read byte by byte
+    x, w = _bsmm_operands(torch, gen, 9, 72, 40, 8, dev)
+    xv = x.reshape(-1)[3:3 + 8 * 72].reshape(8, 72)
+    _exact("bsmm on a view at a 3-byte offset", bs.bsmm_raw(xv, w),
+           bs_ref.ref_bsmm_raw(xv, w))
+    print(f"[bsmm] {len(cases) + 1} cases (grid {BSMM_GRID[:2]} and ragged "
+          f"(5, 70, 33) x n_bits 2/4/8, (70, 130, 40) x n_bits 1..8, M = 1/4 "
+          f"and 128 at the main path's K x N, an unaligned view): kernel == "
+          f"plain version bit for bit")
+    return worst
+
+
+def _bsmm_timing(torch, bs, bs_ref, ql, dev, card):
+    """Kernel, plain version and ``torch._int_mm`` (the same product from
+    the signed int8 weight, one call reading 1/8 of the plane bytes) on one
+    layer's real planes with M = 128 random int8 activation rows."""
+    planes = ql.w_planes
+    n_bits, K, N = planes.shape
+    M = 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                      dtype=torch.int8)
+    u = sum(planes[b].to(torch.int32) << b for b in range(n_bits))
+    w_signed = (u - (1 << (n_bits - 1))).to(torch.int8)
+    ms = _kernel_ms(torch, lambda: bs.bsmm_raw(x, planes))
+    plain_ms = _kernel_ms(torch, lambda: bs_ref.ref_bsmm_raw(x, planes))
+    library_ms = _kernel_ms(torch, lambda: torch._int_mm(x, w_signed))
+    n_bytes = M * K + planes.numel() + 4 * M * N
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / INT8_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[qlm] {card}: bsmm M={M} K={K} N={N} n_bits={n_bits}: kernel "
+          f"{ms:.5f} ms ({n_bytes / ms / 1e6:.1f} GB/s), plain version "
+          f"{plain_ms:.5f} ms, torch._int_mm on the signed int8 weight "
+          f"{library_ms:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{n_bytes} B; {2 * M * K * N} int8 ops take {t_ops:.5f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_qlm(torch, bs, bs_ref, dev, card):
+    """The full-width example; returns (launches of its quantized forward,
+    max abs difference from the plain-version forward, the timing rows at
+    the main path's shapes)."""
+    from repro_torch.examples import simdram_quantized_lm as ex
+    from repro_torch.models.model import forward_train
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bs.bsmm_raw.launches = 0
+    res = ex.main(device=dev, smoke=False)
+    torch.cuda.synchronize()
+    launches = bs.bsmm_raw.launches
+    wall = time.perf_counter() - t0
+    cfg, params, qls, tokens = (res[k] for k in ("cfg", "params", "qls",
+                                                 "tokens"))
+    if launches != 3 * cfg.n_layers or cfg.n_layers != 36:
+        _fail(f"bsmm launches {launches} in one quantized forward of "
+              f"{cfg.n_layers} layers, expected {3 * 36}")
+    q_logits = res["q_logits"]
+    if (q_logits.shape != (4, 32, cfg.vocab)
+            or not bool(torch.isfinite(q_logits).all())
+            or not bool(torch.isfinite(res["ref_logits"]).all())):
+        _fail(f"logits {tuple(q_logits.shape)} not finite or not "
+              f"[4, 32, {cfg.vocab}]")
+    # the same forward with every product through the plain version
+    kernel = bs.bsmm_raw
+    bs.bsmm_raw = bs_ref.ref_bsmm_raw
+    try:
+        q_plain = ex.q_forward(cfg, params, qls, tokens)
+    finally:
+        bs.bsmm_raw = kernel
+    err = (q_logits - q_plain).abs().max().item()
+    if not torch.equal(q_logits, q_plain):
+        _fail(f"quantized logits through the kernel differ from the plain "
+              f"version's forward by up to {err:.3e}")
+    print(f"[qlm] {card}: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, float32): "
+          f"{launches} bsmm launches in one quantized forward; its logits "
+          f"== the plain-version forward's, bit for bit; fp32 ppl "
+          f"{res['ppl_ref']:.4f}, bit-plane ppl {res['ppl_q']:.4f}, drift "
+          f"{res['drift']:.4f}% (< {ex.MAX_DRIFT}%); FFN bytes dense bf16 "
+          f"{res['dense_bytes']} B, packed planes {res['plane_bytes']} B "
+          f"(hbm_bytes), planes as stored and read {res['stored_plane_bytes']}"
+          f" B; {wall:.1f} s wall for main (init, quantization, two "
+          f"forwards); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B")
+    for name, fn in (("dense", lambda: forward_train(cfg, params,
+                                                     {"tokens": tokens})),
+                     ("bit-plane", lambda: ex.q_forward(cfg, params, qls,
+                                                        tokens))):
+        call_ms = _calls_ms(torch, fn, iters=3)
+        busy_ms, kernels = _kernel_busy(torch, fn)
+        if busy_ms is None:
+            print(f"[qlm] {name} forward: {call_ms:.3f} ms on the host "
+                  f"clock; device-busy time not measured (no CUDA kernel "
+                  f"events)")
+            continue
+        top = [(k[:60], c, round(t, 5)) for k, c, t in kernels[:6]]
+        print(f"[qlm] {card}: {name} forward: {call_ms:.3f} ms on the host "
+              f"clock, {sum(c for _, c, _ in kernels)} kernels, device busy "
+              f"{busy_ms:.3f} ms (idle {1 - busy_ms / call_ms:.1%}); top "
+              f"(name, count, ms): {top}")
+    rows = [_bsmm_timing(torch, bs, bs_ref, qls[0][k], dev, card)
+            for k in ("w1", "w2")]
+    del res, params, qls, q_logits, q_plain
+    torch.cuda.empty_cache()
+    return launches, err, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -725,6 +880,8 @@ def main() -> int:
     from repro_torch import core as tc
     from repro_torch.core import bitplane as tbp
     from repro_torch.kernels import bitplane_transpose as tt
+    from repro_torch.kernels.bitserial_matmul import ops as bs
+    from repro_torch.kernels.bitserial_matmul import ref as bs_ref
     from repro_torch.kernels.paged_attention import build_kernel, ops
     from repro_torch.kernels.simdram_vm import ops as vm
     from repro_torch.serve.engine import batched_paged_attention
@@ -743,12 +900,13 @@ def main() -> int:
           f"CUDA {torch.version.cuda} | TF32 off for matmul and cuDNN")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:        # one nvcc per source at once
+    with ThreadPoolExecutor(4) as pool:        # one nvcc per source at once
         builds = list(pool.map(lambda build: build(), (
-            build_kernel, tt.build_kernel, vm.build_kernel)))
+            build_kernel, tt.build_kernel, vm.build_kernel,
+            bs.build_kernel)))
     for lib, log in builds:
         print(f"[build] {lib}; nvcc -Xptxas -v:\n{log.strip()}")
-    print(f"[build] 3 libraries in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] 4 libraries in {time.perf_counter() - t0:.1f} s")
 
     max_err = phase_kernel(torch, pa, ops, batched_paged_attention, dev)
     timing = phase_timing(torch, F, pa, batched_paged_attention, dev, 19)
@@ -769,6 +927,12 @@ def main() -> int:
     rows = phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card)
     print(f"[simdram] phases took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    bsmm_err = phase_bsmm(torch, bs, bs_ref, dev)
+    bsmm_launches, qlm_err, bsmm_rows = phase_qlm(torch, bs, bs_ref, dev,
+                                                  card)
+    print(f"[qlm] phases took {time.perf_counter() - t0:.1f} s")
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     simdram = [
         ("bitplane_pack", csrc.format("bitplane_transpose",
@@ -787,7 +951,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": simdram_launches[name],
             "max_abs_err": errs[name], "bit_exact": errs[name] == 0.0,
-            **rows[name]} for name, source, replaces in simdram]}))
+            **rows[name]} for name, source, replaces in simdram] + [{
+        # timed at the w1/w3 shape (72 of the 108 launches), M = 128
+        "name": "bitserial_matmul", "route": "cuda",
+        "source": csrc.format("bitserial_matmul", "bitserial_matmul"),
+        "replaces": "src/repro/kernels/bitserial_matmul/kernel.py:27",
+        "launches": bsmm_launches, "max_abs_err": max(bsmm_err, qlm_err),
+        "bit_exact": max(bsmm_err, qlm_err) == 0.0, **bsmm_rows[0]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

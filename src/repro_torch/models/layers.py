@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .quantized import qmm
+
 #: additive mask constant of the dense attention paths; the paged paths
 #: (serve/engine.py, kernels/paged_attention) use -1e30 instead
 NEG_INF = -2.0 ** 30
@@ -165,14 +167,15 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
 # channel mixers
 # --------------------------------------------------------------------------
 def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """Dense MLP: ``swiglu`` (w1, w3, w2), ``sq_relu`` (nemotron) or
-    ``gelu`` with the tanh approximation (whisper)."""
+    """MLP with dense or quantized weights (``quantized.qmm``): ``swiglu``
+    (w1, w3, w2), ``sq_relu`` (nemotron) or ``gelu`` with the tanh
+    approximation (whisper)."""
     if act == "swiglu":
-        h = F.silu(x @ params["w1"]) * (x @ params["w3"])
+        h = F.silu(qmm(x, params["w1"])) * qmm(x, params["w3"])
     elif act == "sq_relu":
-        h = torch.square(F.relu(x @ params["w1"]))
+        h = torch.square(F.relu(qmm(x, params["w1"])))
     elif act == "gelu":
-        h = F.gelu(x @ params["w1"], approximate="tanh")
+        h = F.gelu(qmm(x, params["w1"]), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return h @ params["w2"]
+    return qmm(h, params["w2"])

@@ -8,12 +8,15 @@ same structure.
 
 Entry points (plain functions of ``(cfg, params, ...)``):
 
-  * ``prefill``      — forward over a prompt + emit the KV caches;
-  * ``decode_step``  — one token with caches.
+  * ``forward_train`` — the causal LM forward over a batch → logits;
+  * ``prefill``       — forward over a prompt + emit the KV caches;
+  * ``decode_step``   — one token with caches.
 
-Only attention layers (``attn``, and windowed ``local``/SWA ones in these
-two entry points) with dense MLPs are ported; recurrent, SSM, MoE and
-encoder-decoder stacks and ``forward_train`` are queued in ROADMAP.md.
+Every projection goes through ``quantized.qmm``, so the three also run a
+``quantize_serving_params`` tree.  Only attention layers (``attn``, and
+windowed ``local``/SWA ones) with dense MLPs are ported; recurrent, SSM,
+MoE, vision and encoder-decoder stacks, ``lm_loss`` and gradients are
+queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from ..device import resolve_device
 from .config import LayerSpec, ModelConfig
 from .layers import attention, mlp, rms_norm, rope
+from .quantized import qmm
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -191,9 +195,9 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     """x [B, S, d] → q [B, H, S, hd], k/v [B, KV, S, hd] (qk-norm, RoPE)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = qmm(x, p["wq"])
+    k = qmm(x, p["wk"])
+    v = qmm(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd).transpose(1, 2)
@@ -209,7 +213,8 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
 
 def _self_attn_full(spec: LayerSpec, cfg: ModelConfig, p,
                     x: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over the whole sequence (prefill)."""
+    """Causal self-attention over the whole sequence (prefill and train;
+    the reference's ``_self_attn_train``)."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
     window = spec.window or cfg.window
@@ -217,7 +222,7 @@ def _self_attn_full(spec: LayerSpec, cfg: ModelConfig, p,
                   chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
                   p_bf16=cfg.attn_p_bf16,
                   causal_groups=cfg.attn_causal_groups)
-    return o.transpose(1, 2).reshape(B, S, -1) @ p["wo"]
+    return qmm(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
 
 
 def _self_attn_decode(spec: LayerSpec, cfg: ModelConfig, p,
@@ -237,7 +242,7 @@ def _self_attn_decode(spec: LayerSpec, cfg: ModelConfig, p,
                 ).expand(B, S_c)
     o = attention(q, ck, cv, causal=False, window=0, kv_valid=kv_valid)
     o = o.transpose(1, 2).reshape(B, 1, -1)
-    return o @ p["wo"], {"k": ck, "v": cv}
+    return qmm(o, p["wo"]), {"k": ck, "v": cv}
 
 
 def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, p, h: torch.Tensor,
@@ -265,7 +270,8 @@ def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, p, h: torch.Tensor,
 def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
                 mode: str, cache: Optional[Dict] = None,
                 pos: Optional[int] = None):
-    """mode: 'prefill' | 'decode'.  Returns (x, new_cache)."""
+    """mode: 'train' | 'prefill' | 'decode' ('train' is prefill without
+    the K/V cache).  Returns (x, new_cache)."""
     if spec.kind not in ("attn", "local") or spec.moe:
         raise NotImplementedError(
             f"layer kind {spec.kind!r} is not ported yet (ROADMAP.md § A5)")
@@ -274,12 +280,12 @@ def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
     if mode == "decode":
         o, kv = _self_attn_decode(spec, cfg, p["attn"], h, cache, pos)
         new_cache.update(kv)
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         o = _self_attn_full(spec, cfg, p["attn"], h)
-        new_cache.update(_prefill_kv(spec, cfg, p["attn"], h, cache))
+        if mode == "prefill":
+            new_cache.update(_prefill_kv(spec, cfg, p["attn"], h, cache))
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: training is not ported yet (ROADMAP.md § A13)")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + mlp(p["mlp"], h2, cfg.act)
@@ -297,17 +303,18 @@ def _layer_params(tree, j: int):
 # stage loop
 # --------------------------------------------------------------------------
 def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
-               mode: str, caches, pos: Optional[int] = None,
+               mode: str, caches=None, pos: Optional[int] = None,
                stage_list=None):
     """Run every stage's period ``count`` times (a Python loop where the
     reference scans).  ``caches`` is updated in place — prefill writes each
     layer's recomputed K/V into it, decode writes the new token — and
-    returned: (x, caches)."""
+    returned: (x, caches).  Mode 'train' takes no caches."""
     stage_list = stage_list or cfg.stages()
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
         for j in range(stage.count):
             for i, spec in enumerate(stage.period):
-                cc = _layer_params(caches[si][i], j)
+                cc = (None if caches is None
+                      else _layer_params(caches[si][i], j))
                 x, nc = apply_layer(spec, cfg, _layer_params(sp[i], j), x,
                                     mode=mode, cache=cc, pos=pos)
                 if mode == "prefill":
@@ -329,7 +336,22 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    if isinstance(head, dict):
+        return qmm(x, head).float()
     return (x @ head.to(x.dtype)).float()
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
+    """batch["tokens"] [B, S] → logits [B, S, V] (decoder-only stacks; the
+    reference's vision and audio inputs are not ported)."""
+    _check_supported(cfg)
+    if cfg.n_vis_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: vision embeddings are not ported yet "
+            f"(ROADMAP.md § A)")
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    x, _ = run_stages(cfg, params["stages"], x, mode="train")
+    return _logits(cfg, params, x)
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int

@@ -16,7 +16,14 @@ runs on a machine without JAX:
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
     their plain versions (ragged tails, both styles, every block size),
     their wrappers refuse what the kernels do not take, and a CUDA
-    ``apply_op`` goes through the VM kernel and never through ``execute``.
+    ``apply_op`` goes through the VM kernel and never through ``execute``;
+  * the bit-serial matmul kernel agrees bit for bit with its plain version
+    (the test grid, ragged and unaligned shapes, decode batches, the main
+    path's shapes), its wrapper refuses what it does not take, and the
+    quantized layers, ``qmm`` (``torch._int_mm``) and the quantized model
+    on the card agree with the CPU (1e-6 relative for one layer: the same
+    int32 sums, float32 scales; 1e-4 for logits: float32 layers summed in
+    another order on the card).
 """
 import numpy as np
 import pytest
@@ -25,11 +32,16 @@ import torch
 from repro_torch import core as tc
 from repro_torch.core import bitplane as tbp
 from repro_torch.examples import quickstart
+from repro_torch.examples import simdram_quantized_lm
 from repro_torch.kernels import bitplane_transpose as tt
+from repro_torch.kernels.bitserial_matmul import ops as bs
+from repro_torch.kernels.bitserial_matmul import ref as bs_ref
 from repro_torch.kernels.paged_attention import ops, paged_attention
 from repro_torch.kernels.simdram_vm import ops as vm
 from repro_torch.launch.serve import serve_config
+from repro_torch.models import model as tm
 from repro_torch.models.model import init_params
+from repro_torch.models.quantized import qmm, quantize_serving_params
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
 
 from _torch_simdram_cases import hand_program
@@ -291,3 +303,128 @@ def test_cuda_path_never_runs_the_plain_versions(dev, monkeypatch):
                                   np.bitwise_xor(*res["inputs"][:2])
                                   & res["inputs"][2])
     assert vm.run_uprogram.launches == before + 3
+
+
+# -- the bit-serial matmul -----------------------------------------------------
+TOL_LOGITS = dict(atol=1e-4, rtol=1e-4)
+#: the test grid, ragged shapes and the decode batches M = 1, 4
+BSMM_SHAPES = [(128, 128, 128), (256, 128, 384), (5, 70, 33), (1, 128, 256),
+               (4, 70, 33), (70, 130, 40), (4, 2048, 11008)]
+
+
+def _bsmm_operands(M, K, N, n_bits, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(0, 2, (n_bits, K, N)).astype(np.int8))
+    return x.to(device), w.to(device)
+
+
+@pytest.mark.parametrize("n_bits", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("shape", BSMM_SHAPES)
+def test_bsmm_kernel_matches_plain(dev, shape, n_bits):
+    x, w = _bsmm_operands(*shape, n_bits, seed=n_bits, device=dev)
+    got = bs.bsmm_raw(x, w)
+    assert got.dtype == torch.int32 and got.shape == (shape[0], shape[2])
+    assert torch.equal(got, bs_ref.ref_bsmm_raw(x, w))
+    assert torch.equal(got.cpu(), bs.bsmm_raw(x.cpu(), w.cpu()))
+
+
+@pytest.mark.parametrize("shape", [(128, 2048, 11008), (128, 11008, 2048)])
+def test_bsmm_kernel_at_main_path_shapes(dev, shape):
+    x, w = _bsmm_operands(*shape, 8, seed=1, device=dev)
+    assert torch.equal(bs.bsmm_raw(x, w), bs_ref.ref_bsmm_raw(x, w))
+
+
+def test_bsmm_kernel_on_unaligned_rows_and_empty_k(dev):
+    """Rows that do not start on 4-byte boundaries (a view at an odd
+    offset, odd K and N) are read byte by byte; K = 0 gives zeros."""
+    x, w = _bsmm_operands(9, 72, 40, 8, seed=5, device=dev)
+    xv = x.reshape(-1)[3:3 + 8 * 72].reshape(8, 72)          # offset 3 B
+    assert xv.is_contiguous() and xv.data_ptr() % 4 == 3
+    assert torch.equal(bs.bsmm_raw(xv, w), bs_ref.ref_bsmm_raw(xv, w))
+    x, w = _bsmm_operands(3, 0, 5, 4, seed=6, device=dev)
+    assert torch.equal(bs.bsmm_raw(x, w),
+                       torch.zeros((3, 5), dtype=torch.int32, device=dev))
+    x, w = _bsmm_operands(3, 9, 0, 4, seed=6, device=dev)
+    assert bs.bsmm_raw(x, w).shape == (3, 0)
+
+
+def test_bsmm_wrapper_counts_and_refuses(dev):
+    x, w = _bsmm_operands(4, 64, 32, 8, seed=2, device=dev)
+    before = bs.bsmm_raw.launches
+    bs.bsmm_raw(x, w)
+    assert bs.bsmm_raw.launches == before + 1
+    bad = [(x.float(), w, TypeError), (x, w.to(torch.uint8), TypeError),
+           (x.t(), w, ValueError),                         # non-contiguous
+           (x, w.transpose(1, 2), ValueError),
+           (x[:, :32], w, ValueError),                     # K mismatch
+           (x, torch.zeros((9, 64, 32), dtype=torch.int8, device=dev),
+            ValueError),                                   # 9 planes
+           (x, w[0], ValueError),                          # 2-D planes
+           (x, w.cpu(), ValueError)]                       # device mix
+    for xx, ww, err in bad:
+        with pytest.raises(err):
+            bs.bsmm_raw(xx, ww)
+    assert bs.bsmm_raw.launches == before + 1
+
+
+def test_quantized_linear_and_qmm_on_card_match_cpu(dev):
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((200, 120)).astype(np.float32))
+    ql = bs.QuantizedLinear.from_dense(w)
+    qc = bs.QuantizedLinear.from_dense(w.to(dev))
+    assert torch.equal(qc.w_planes.cpu(), ql.w_planes)
+    assert torch.equal(qc.w_scale.cpu(), ql.w_scale)
+    for shape in ((1, 200), (2, 9, 200), (40, 200)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        before = bs.bsmm_raw.launches
+        y = qc(x.to(dev))
+        assert bs.bsmm_raw.launches == before + 1
+        torch.testing.assert_close(y.cpu(), ql(x), rtol=1e-6, atol=0)
+    # qmm pads M to 17 and K, N to multiples of 8 for torch._int_mm, whose
+    # weight goes in column-major (a row-major one is refused at M = 17-48
+    # with K = 64); the row-major case is taken as well
+    for M, K, N in ((1, 64, 32), (4, 13, 7), (17, 64, 32), (40, 64, 64),
+                    (40, 200, 120), (128, 2048, 256)):
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+        wq = quantize_serving_params({"wo": torch.from_numpy(
+            rng.standard_normal((K, N)).astype(np.float32))})["wo"]
+        assert wq["q8"].stride(0) == 1
+        want = qmm(x, wq)
+        for q8 in (wq["q8"], wq["q8"].contiguous()):
+            got = qmm(x.to(dev), {"q8": q8.to(dev), "s": wq["s"].to(dev)})
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+
+
+def test_quantized_model_on_card_matches_cpu(dev):
+    cfg = serve_config("qwen2.5-3b")
+    params = quantize_serving_params(init_params(cfg, seed=0, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, 6)))
+    want, wc = tm.prefill(cfg, params, {"tokens": toks}, 8)
+    got, gc = tm.prefill(cfg, _to(params, dev), {"tokens": toks.to(dev)}, 8)
+    torch.testing.assert_close(got.cpu(), want, **TOL_LOGITS)
+    nxt = want[:, 0].argmax(-1)[:, None]
+    want, _ = tm.decode_step(cfg, params, wc, nxt, 6)
+    got, _ = tm.decode_step(cfg, _to(params, dev), gc, nxt.to(dev), 6)
+    torch.testing.assert_close(got.cpu(), want, **TOL_LOGITS)
+    want = tm.forward_train(cfg, params, {"tokens": toks})
+    got = tm.forward_train(cfg, _to(params, dev), {"tokens": toks.to(dev)})
+    torch.testing.assert_close(got.cpu(), want, **TOL_LOGITS)
+
+
+def test_smoke_example_on_card_goes_through_the_kernel(dev, monkeypatch):
+    cpu = simdram_quantized_lm.main(device="cpu", smoke=True)
+    before = bs.bsmm_raw.launches
+    res = simdram_quantized_lm.main(device=dev, smoke=True)
+    assert bs.bsmm_raw.launches == before + 3 * res["cfg"].n_layers
+    assert res["drift"] < simdram_quantized_lm.MAX_DRIFT
+    for k in ("dense_bytes", "plane_bytes", "stored_plane_bytes"):
+        assert res[k] == cpu[k]
+    # the card draws other random weights than the CPU, so the perplexities
+    # are not compared; the same forward through the plain version on the
+    # card gives the same logits
+    monkeypatch.setattr(bs, "bsmm_raw", bs_ref.ref_bsmm_raw)
+    q_plain = simdram_quantized_lm.q_forward(res["cfg"], res["params"],
+                                             res["qls"], res["tokens"])
+    assert torch.equal(res["q_logits"], q_plain)
