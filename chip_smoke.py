@@ -30,8 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
               int64 input);
   6. vm     — the μProgram-VM kernel bit-exact against ``execute`` on the
               card (16 ops x n 8/16 x both styles, 2^16 elements) and the
-              numpy ORACLES (16 ops at n=32 on 2^20 elements), across block
-              sizes, and the quickstart's AOIG-defined op end to end;
+              numpy ORACLES (16 ops at n=32 on 2^20 elements, each op's
+              μOps, compiled MAJ instructions and row-file slots printed),
+              across block sizes, and the quickstart's AOIG-defined op end
+              to end;
   7. pipeline — bench_kernels' brightness kernel on 2^20 8-bit pixels:
               pack x3 -> add -> gt -> if_else -> unpack through the kernels,
               equal to np.minimum(img + 40, 127) & 0xFF, every launch
@@ -41,7 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
               steady-state call, whose profiled launches must match the
               counts;
   8. timing — SIMDRAM kernels, plain versions and library yardsticks at
-              2^20 and 2^26 elements beside their bounds;
+              2^20 and 2^26 elements beside their bounds (the VM's: the
+              bytes of the planes it reads and writes, or one LOP3 per
+              compiled MAJ per word);
   9. bsmm   — the bit-serial matmul kernel bit-exact against its plain
               version on the test grid, ragged and unaligned shapes, the
               decode batches M = 1 and 4, and both main-path shapes;
@@ -80,6 +84,9 @@ TIE_GAP = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+#: the spin kernel that calls are timed behind: its least length and the
+#: attempts, each with a quarter of the calls, before the timing gives up
+SPIN_MIN_MS, SPIN_TRIES = 5.0, 8
 
 SERVE_ARGV = ["--no-smoke", "--arch", "qwen3-0.6b", "--attn-impl", "kernel",
               "--requests", "6", "--max-new", "16", "--batch-slots", "4",
@@ -99,7 +106,8 @@ def _time_ms(torch, fn, iters: int = 100, warmup: int = 10):
     outlasts their enqueue, so they run back to back on the card and the
     host's share drops out.  The spin must still be running when the last
     call is queued (a full launch queue would block the host and let gaps
-    in); otherwise the count is cut and the measurement repeated."""
+    in); otherwise the count is cut and the measurement repeated, up to
+    ``SPIN_TRIES`` times."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -112,9 +120,12 @@ def _time_ms(torch, fn, iters: int = 100, warmup: int = 10):
     stop = torch.cuda.Event(enable_timing=True)
     spun = torch.cuda.Event()
     n = iters
-    while n >= 1:
-        # ~2 GHz SM clock: spin for twice the host time of n calls
-        torch.cuda._sleep(int(min(2 * call_ms * n, 4000) * 2e6))
+    for _ in range(SPIN_TRIES):
+        # ~2 GHz SM clock: spin for twice the host time of n calls, and
+        # at least SPIN_MIN_MS, so that a pause of the host while it
+        # queues a few short calls does not outlast the spin
+        spin_ms = min(max(2 * call_ms * n, SPIN_MIN_MS), 4000)
+        torch.cuda._sleep(int(spin_ms * 2e6))
         spun.record()
         start.record()
         for _ in range(n):
@@ -124,7 +135,7 @@ def _time_ms(torch, fn, iters: int = 100, warmup: int = 10):
         stop.synchronize()
         if clean:
             return start.elapsed_time(stop) / n, call_ms
-        n //= 4
+        n = max(1, n // 4)
     _fail("could not queue even one call behind the spin kernel")
 
 
@@ -485,7 +496,15 @@ def phase_vm(torch, np, tt, vm, tc, dev):
           f"kernel == execute on the card ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     n, size = 32, FULL
+    counts, compile_ms = [], {}
     for op in tc.PAPER_16:
+        spec = tc.OPS[op]
+        prog = tc.get_uprogram(op, n)
+        t1 = time.perf_counter()     # first use: lower and compile
+        cp, _ = vm.compiled(prog, spec.input_names, [n] * spec.n_inputs,
+                            spec.out_bits(n))
+        compile_ms[op] = (time.perf_counter() - t1) * 1e3
+        counts.append(f"{op} {len(prog.flatten())}/{cp.n_maj}/{cp.n_slots}")
         ins = _op_inputs(np, op, n, size, 1)
         bps = [tt.to_bitplanes(torch.from_numpy(x).to(dev), n) for x in ins]
         out = tc.apply_op(op, *bps)
@@ -501,7 +520,10 @@ def phase_vm(torch, np, tt, vm, tc, dev):
     print(f"[vm] 16 ops at n=32 on {_p2(size)} elements (mul, div "
           f"included): VM "
           f"kernel == numpy ORACLES over every element "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"({time.perf_counter() - t0:.1f} s); μOps/compiled MAJ/slots: "
+          f"{', '.join(counts)}; host compile (lower + compile_lowered): "
+          f"div {compile_ms['div']:.1f} ms, mul {compile_ms['mul']:.1f} ms, "
+          f"all 16 {sum(compile_ms.values()):.1f} ms")
     for op in ("add", "mul", "div"):
         bps = [tt.to_bitplanes(torch.from_numpy(x).to(dev), 32)
                for x in _op_inputs(np, op, 32, size, 2)]
@@ -655,6 +677,7 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
     """Kernel, plain version and library yardstick at 2^20 and 2^26
     elements; returns the rows at the main path's shapes (2^20, 8 bits)."""
     rows = {}
+    dev_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for size in (FULL, LARGE):
         nw = -(-size // 32)
         tag = _p2(size)
@@ -686,11 +709,15 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
                       f"library none")
                 if size == FULL and n_bits == 8:
                     rows[name] = row
+        # div's operands are non-negative, so torch's truncating int32
+        # division is the VM's unsigned one
+        a_pos = a & (2**30 - 1)
         library = {"add": lambda: torch.add(a, b),
                    "gt": lambda: torch.gt(a, b),
                    "relu": lambda: torch.relu(a),
                    "if_else": lambda: torch.where(mask, a, b),
-                   "mul": lambda: torch.mul(a, b), "bitcount": None}
+                   "mul": lambda: torch.mul(a, b), "bitcount": None,
+                   "div": lambda: torch.div(a_pos, b, rounding_mode="trunc")}
         mask = cond.bool()
         cases = [(op, 32, library[op]) for op in library]
         if size == FULL:                   # the main path's first bbop,
@@ -698,9 +725,12 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
             cases.insert(0, ("add", 8, lambda: torch.add(a8, b8)))
         for op, n, lib_fn in cases:
             spec = tc.OPS[op]
-            srcs = {1: [a], 2: [a, b], 3: [cond, a, b]}[spec.n_inputs]
+            srcs = {1: [a], 2: [a_pos if op == "div" else a, b],
+                    3: [cond, a, b]}[spec.n_inputs]
             bps = [tt.to_bitplanes(x, n) for x in srcs]
             prog = tc.get_uprogram(op, n)
+            cp, _ = vm.compiled(prog, spec.input_names,
+                                [n] * spec.n_inputs, spec.out_bits(n))
             planes = [x.planes for x in bps]
             ms = _kernel_ms(torch, lambda: vm.simdram_op(op, *bps))
             plain_ms = None
@@ -710,13 +740,19 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
                     out_bits=spec.out_bits(n)))
             lib_ms = _kernel_ms(torch, lib_fn) if lib_fn else None
             n_uops = len(prog.flatten())
-            io = 4 * nw * (n * spec.n_inputs + spec.out_bits(n))
-            bound_ms, by = _bound(io, n_uops * nw)
+            # the least work: the input planes the function reads (if_else
+            # reads one plane of its predicate) and the output planes once;
+            # one LOP3 per compiled MAJ per 32-lane word
+            io = 4 * nw * (cp.n_loads + spec.out_bits(n))
+            bound_ms, by = _bound(io, cp.n_maj * nw)
+            shape = vm.launch_shape(cp.n_slots, nw, 128, dev_sms)
             print(f"[timing] {card}: simdram_vm {op} n={n} {tag} "
-                  f"({n_uops} uops): kernel {ms:.5f} ms, plain (execute, "
-                  f"host clock per call) "
+                  f"({n_uops} uops, {cp.n_maj} MAJ, {cp.n_loads} planes "
+                  f"read, {cp.n_slots} slots, "
+                  f"(threads, words per thread) {shape}): kernel "
+                  f"{ms:.5f} ms, plain (execute, host clock per call) "
                   f"{'-' if plain_ms is None else f'{plain_ms:.3f}'} ms, "
-                  f"bound {bound_ms:.5f} ms ({by}: {io} B, {n_uops * nw} "
+                  f"bound {bound_ms:.5f} ms ({by}: {io} B, {cp.n_maj * nw} "
                   f"LOP3), library "
                   f"{'none' if lib_ms is None else f'{lib_ms:.5f} ms on int{n}'}")
             if size == FULL and n == 8:

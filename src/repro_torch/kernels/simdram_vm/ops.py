@@ -2,9 +2,9 @@
 (``csrc/simdram_vm.cu``) and its wrappers.
 
 :func:`run_uprogram` executes a μProgram over packed bit planes.  For CUDA
-tensors it lowers the program to the VM's instruction stream (once per
-program and input widths, ``lower.py``) and launches the kernel — or
-raises; for CPU tensors it runs the plain version,
+tensors it lowers and compiles the program to the VM's instruction stream
+(once per program and input widths, ``lower.py``) and launches the kernel
+— or raises; for CPU tensors it runs the plain version,
 :func:`repro_torch.core.engine.execute`.  There is no fallback from one to
 the other.  ``run_uprogram.launches`` counts kernel launches.
 :func:`simdram_op` runs a registered operation by name.
@@ -24,15 +24,21 @@ from ...core.engine import execute
 from ...core.operations import OPS, get_uprogram
 from ...core.uprogram import UProgram
 from .. import _build
-from .lower import LoweredProgram, lower
+from .lower import CompiledProgram, compile_lowered, lower
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "simdram_vm.cu"
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_BYTES = 232_448
 MAX_INPUTS = 8
-#: lowered programs kept, most recently used last
+#: words a thread may carry (the kernel's template instances)
+MAX_WORDS_PER_THREAD = 4
+#: threads x words per thread of one block (the kernel's launch bounds)
+MAX_BLOCK_WORDS = 1024
+#: blocks per SM the grid should give before a thread carries more words
+BLOCKS_PER_SM = 2
+#: compiled programs kept, most recently used last
 _CACHE_ENTRIES = 64
-_LOWERED: "OrderedDict[tuple, Tuple[UProgram, LoweredProgram, Dict]]" = \
+_COMPILED: "OrderedDict[tuple, Tuple[UProgram, CompiledProgram, Dict]]" = \
     OrderedDict()
 
 
@@ -46,36 +52,64 @@ def build_kernel() -> Tuple[Path, str]:
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE, "simdram_vm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_simdram_vm.argtypes = [p, i, p, i, p, i, p, i, i, i, p, p]
+    lib.repro_simdram_vm.argtypes = [p, i, i, p, i, i, i, i, p, p]
     lib.repro_simdram_vm.restype = i
     return lib
 
 
-def _lowered(uprog: UProgram, input_names: Sequence[str],
+def compiled(uprog: UProgram, input_names: Sequence[str],
              input_bits: Sequence[int], out_bits: int
-             ) -> Tuple[LoweredProgram, Dict]:
-    """The lowered program and its per-device tensors, from a cache keyed
+             ) -> Tuple[CompiledProgram, Dict]:
+    """The compiled program and its per-device tensors, from a cache keyed
     by the program object: a μProgram is a static artifact, not edited
     once it has run."""
     key = (id(uprog), tuple(input_names), tuple(input_bits), out_bits)
-    hit = _LOWERED.get(key)
+    hit = _COMPILED.get(key)
     if hit is None or hit[0] is not uprog:
-        hit = (uprog, lower(uprog, input_names, input_bits, out_bits), {})
-        _LOWERED[key] = hit
-        if len(_LOWERED) > _CACHE_ENTRIES:
-            _LOWERED.popitem(last=False)
-    _LOWERED.move_to_end(key)
+        hit = (uprog, compile_lowered(lower(uprog, input_names, input_bits,
+                                            out_bits)), {})
+        _COMPILED[key] = hit
+        if len(_COMPILED) > _CACHE_ENTRIES:
+            _COMPILED.popitem(last=False)
+    _COMPILED.move_to_end(key)
     return hit[1], hit[2]
 
 
 def threads_per_block(n_slots: int, block_words: int) -> int:
-    """Words (threads) per block: ``block_words``, cut to the most multiple
-    of 32 whose row file (n_slots x threads x 4 B) fits in shared memory."""
+    """Threads per block: ``block_words``, cut to the most multiple of 32
+    whose row file (n_slots x threads x 4 B) fits in shared memory."""
     fit = SMEM_BYTES // (4 * n_slots) // 32 * 32
     if fit < 32:
         raise ValueError(f"{n_slots} rows x 32 threads x 4 B exceed the "
                          f"{SMEM_BYTES} B of shared memory of a block")
-    return min(block_words, fit, 1024)
+    return min(block_words, fit, MAX_BLOCK_WORDS)
+
+
+def launch_shape(n_slots: int, n_words: int, block_words: int,
+                 n_sms: int, align_words: int = MAX_WORDS_PER_THREAD
+                 ) -> Tuple[int, int]:
+    """(threads per block, words per thread).  A thread carries 1, 2 or 4
+    consecutive words: more while the count divides ``n_words`` and
+    ``align_words`` (the words to which every plane's address is aligned),
+    threads x words stays within ``MAX_BLOCK_WORDS``, the grid still gives
+    ``BLOCKS_PER_SM`` blocks to each of ``n_sms`` SMs, and the row file
+    (n_slots x words x threads x 4 B) fits in half the shared memory, so
+    two blocks share an SM."""
+    threads = threads_per_block(n_slots, block_words)
+    words = 1
+    while (words < MAX_WORDS_PER_THREAD
+           and n_words % (2 * words) == 0 and align_words % (2 * words) == 0
+           and 2 * words * threads <= MAX_BLOCK_WORDS
+           and 8 * n_slots * words * threads <= SMEM_BYTES // 2
+           and -(-n_words // (2 * words * threads))
+           >= BLOCKS_PER_SM * n_sms):
+        words *= 2
+    return threads, words
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda_args(planes, input_names, out_bits, block_words) -> None:
@@ -106,9 +140,10 @@ def run_uprogram(uprog: UProgram, planes: Sequence[torch.Tensor],
                  input_names: Sequence[str], out_bits: int,
                  block_words: int = 128) -> torch.Tensor:
     """Execute a μProgram over packed planes int32 [n_bits_i, n_words] each;
-    returns int32 [out_bits, n_words].  ``block_words`` is the words (CUDA
-    threads) per block, cut to what the row file lets fit; the result does
-    not depend on it."""
+    returns int32 [out_bits, n_words].  ``block_words`` is the CUDA threads
+    per block, cut to what the row file lets fit; each thread carries one
+    or more words, as the word count asks (:func:`launch_shape`).  The
+    result depends on neither."""
     planes = list(planes)
     dev = planes[0].device
     if dev.type == "cpu":
@@ -122,17 +157,20 @@ def run_uprogram(uprog: UProgram, planes: Sequence[torch.Tensor],
     out = torch.empty((out_bits, n_words), dtype=torch.int32, device=dev)
     if n_words == 0:
         return out
-    prog, on_device = _lowered(uprog, input_names,
+    prog, on_device = compiled(uprog, input_names,
                                [p.shape[0] for p in planes], out_bits)
     if dev not in on_device:
-        on_device[dev] = tuple(torch.from_numpy(a).to(dev) for a in
-                               (prog.instrs, prog.init, prog.out_slots))
-    instrs, init, out_slots = on_device[dev]
+        on_device[dev] = torch.from_numpy(prog.code).to(dev)
+    # the words to which every plane read is aligned (out is fresh)
+    addrs = [p.data_ptr() for p in planes if p.numel()]
+    align = min((a & -a for a in addrs),
+                default=4 * MAX_WORDS_PER_THREAD) // 4
+    threads, words = launch_shape(prog.n_slots, n_words, block_words,
+                                  _n_sms(dev.index), align)
     ptrs = (ctypes.c_void_p * MAX_INPUTS)(*[p.data_ptr() for p in planes])
     rc = _library().repro_simdram_vm(
-        instrs.data_ptr(), prog.n_instr, init.data_ptr(), prog.n_slots,
-        out_slots.data_ptr(), out_bits, ptrs, len(planes), n_words,
-        threads_per_block(prog.n_slots, block_words), out.data_ptr(),
+        on_device[dev].data_ptr(), prog.n_instr, prog.n_slots, ptrs,
+        len(planes), n_words, threads, words, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"simdram_vm kernel launch failed with CUDA error "

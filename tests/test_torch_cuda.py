@@ -14,7 +14,8 @@ runs on a machine without JAX:
     ``torch.cuda.set_sync_debug_mode("error")``, and its logits match the
     CPU engine's;
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
-    their plain versions (ragged tails, both styles, every block size),
+    their plain versions (ragged tails, both styles, every block size, 1,
+    2 and 4 words per thread, div at 32 bits in blocks of 1,024),
     their wrappers refuse what the kernels do not take, and a CUDA
     ``apply_op`` goes through the VM kernel and never through ``execute``;
   * the bit-serial matmul kernel agrees bit for bit with its plain version
@@ -44,7 +45,7 @@ from repro_torch.models.model import init_params
 from repro_torch.models.quantized import qmm, quantize_serving_params
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
 
-from _torch_simdram_cases import hand_program
+from _torch_simdram_cases import alias_program, hand_program
 
 pytestmark = pytest.mark.cuda
 
@@ -251,6 +252,59 @@ def test_vm_kernel_at_64_bits_and_on_a_hand_program(dev):
     ref = tc.execute(prog, {"A": a}, 3, out_bits=4)
     assert torch.equal(vm.run_uprogram(prog, [a], ["A"], 4), ref)
     assert torch.equal(a, a0)
+    # outputs that are an input, its complement or a constant; a row
+    # written twice by one AAP
+    prog = alias_program()
+    b = a[:1].clone()
+    b0 = b.clone()
+    ref = tc.execute(prog, {"A": a, "B": b}, 3, out_bits=7)
+    for bw in (1, 32):
+        assert torch.equal(vm.run_uprogram(prog, [a, b], ["A", "B"], 7,
+                                           block_words=bw), ref)
+    assert torch.equal(a, a0) and torch.equal(b, b0)
+
+
+def test_vm_kernel_div32_in_blocks_of_1024(dev):
+    ins = _case("div", 32, 5000, seed=32)
+    ins[1] = np.where(ins[1] == 0, 1, ins[1])
+    bps = [tc.pack_np(x, 32, device=dev) for x in ins]
+    prog = tc.get_uprogram("div", 32)
+    planes = [bp.planes for bp in bps]
+    ref = tc.execute(prog, dict(zip(("A", "B"), planes)), bps[0].n_words,
+                     out_bits=tc.OPS["div"].out_bits(32))
+    for bw in (1024, 96):
+        got = vm.run_uprogram(prog, planes, ("A", "B"),
+                              tc.OPS["div"].out_bits(32), block_words=bw)
+        assert torch.equal(got, ref), f"block_words={bw}"
+
+
+@pytest.mark.parametrize("op,n", [("add", 8), ("if_else", 8), ("mul", 8),
+                                  ("gt", 16)])
+def test_vm_kernel_words_per_thread_and_ragged_tails(dev, op, n):
+    """Word counts that make the wrapper give a thread 1, 2 and 4 words,
+    none a multiple of words x threads; 1 word; and a word count large
+    enough for 4 words per thread that only 1 divides."""
+    spec = tc.OPS[op]
+    prog = tc.get_uprogram(op, n)
+    out_bits = spec.out_bits(n)
+    cp, _ = vm.compiled(prog, spec.input_names, [n] * spec.n_inputs,
+                        out_bits)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = vm.BLOCKS_PER_SM * n_sms
+    for words, n_words in ((1, 1), (1, 45), (1, 4 * 32 * blocks + 5)) + \
+            tuple((w, w * (32 * blocks - 1)) for w in (2, 4)):
+        assert vm.launch_shape(cp.n_slots, n_words, 32, n_sms) == \
+            (32, words)
+        ins = _case(op, n, 32 * n_words - 17, seed=words)
+        bps = [tc.pack_np(x, n, device=dev) for x in ins]
+        planes = [bp.planes for bp in bps]
+        ref = tc.execute(prog, dict(zip(spec.input_names, planes)), n_words,
+                         out_bits=out_bits)
+        got = vm.run_uprogram(prog, planes, spec.input_names, out_bits,
+                              block_words=32)
+        assert torch.equal(got, ref), f"{words} words per thread"
+        for bp, x in zip(bps, ins):
+            np.testing.assert_array_equal(tc.unpack_np(bp), x)
 
 
 def test_simdram_wrappers_count_and_refuse(dev):

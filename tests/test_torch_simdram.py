@@ -7,10 +7,14 @@ bit-exact, on the same numpy-seeded inputs:
     reference's ``apply_op`` and the numpy ``ORACLES``; ``simdram_op``
     against the reference's Pallas VM kernel in interpret mode;
   * the cost model and the control unit's accounting;
-  * the μProgram-VM kernel's instruction stream: a numpy interpreter of
-    exactly what the CUDA kernel runs (``kernels/simdram_vm/lower.py``)
-    against ``execute``.  The kernel itself is held against ``execute`` on
-    the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+  * the μProgram-VM kernel's instruction streams: numpy interpreters of
+    the stage-1 μOp stream (``lower``) and of the compiled stream the CUDA
+    kernel runs (``compile_lowered``, ``kernels/simdram_vm/lower.py``)
+    against ``execute``, and the compiled stream's structure (fewer MAJ
+    than μOps, fewer slots than stage 1, every slot written before it is
+    read, every output plane stored once).  The kernel itself is held
+    against ``execute`` on the card (``tests/test_torch_cuda.py``,
+    ``chip_smoke.py``)."""
 from dataclasses import asdict
 from functools import partial
 
@@ -29,9 +33,13 @@ from repro.kernels import simdram_op as j_simdram_op
 from repro_torch import core as tc
 from repro_torch.core.uprogram import Aap, Segment, UProgram
 from repro_torch.examples import quickstart
-from repro_torch.kernels.simdram_vm import lower, run_uprogram, simdram_op
+from repro_torch.kernels.simdram_vm import (compile_lowered, lower,
+                                           run_uprogram, simdram_op)
+from repro_torch.kernels.simdram_vm.lower import (AHEAD, LOAD, MAJ, STORE,
+                                                 WAIT)
+from repro_torch.kernels.simdram_vm.ops import launch_shape
 
-from _torch_simdram_cases import hand_program
+from _torch_simdram_cases import alias_program, hand_program
 
 CPU = torch.device("cpu")
 STYLES = ("simdram", "ambit")
@@ -180,6 +188,147 @@ def test_lowering_refuses_writes_to_constant_rows():
         lower(prog, [], [], 1)
     with pytest.raises(ValueError, match="constant"):
         tc.execute(prog, {}, 1)
+
+
+def _fields(cp):
+    words = cp.code.view(np.uint32)
+    return np.stack([words & 0xFFFF, words >> 16], axis=-1).reshape(-1, 4)
+
+
+def _interpret_compiled(cp, planes, n_words, seed=0):
+    """Numpy model of the CUDA VM kernel on the compiled stream: slot 0
+    the zero row, every other slot and the output starting as garbage;
+    MAJ, LOAD, WAIT and STORE as ``csrc/simdram_vm.cu`` documents them (a
+    LOAD lands at once here; ``_check_structure`` checks the WAITs)."""
+    ones = np.uint32(0xFFFFFFFF)
+    rng = np.random.default_rng(seed)
+    rf = rng.integers(0, 1 << 32, (cp.n_slots, n_words),
+                      dtype=np.uint64).astype(np.uint32)
+    rf[0] = 0
+    out = rng.integers(0, 1 << 32, (cp.out_bits, n_words),
+                       dtype=np.uint64).astype(np.uint32)
+    for f0, f1, f2, f3 in _fields(cp).tolist():
+        kind, dst = f3 & 3, f3 >> 2
+        if kind == MAJ:
+            a, b, c = (rf[f >> 1] ^ (ones * (f & 1)) for f in (f0, f1, f2))
+            rf[dst] = (a & b) | (a & c) | (b & c)
+        elif kind == LOAD:
+            rf[dst] = planes[f0][f1]
+        elif kind == STORE:
+            out[f1] = rf[f0 >> 1] ^ (ones * (f0 & 1))
+    return out
+
+
+def _check_structure(cp, n_uops, stage1_slots):
+    """Fewer MAJ than μOps and no more slots than stage 1; every slot is
+    written before it is read (slot 0, the zero row, never written), and
+    a slot whose LOAD may be in flight only after a WAIT; only a MAJ's
+    first operand complemented; every output plane stored exactly once;
+    the stream padded with WAITs as the kernel's fetch of it needs."""
+    assert cp.n_maj <= n_uops
+    assert cp.n_slots <= stage1_slots
+    fields = _fields(cp).tolist()
+    assert cp.n_instr % AHEAD == 0
+    assert all(f[3] == WAIT for f in fields[cp.n_instr:])
+    assert len(fields) == cp.n_instr + AHEAD
+    written, stored, in_flight = {0}, [], set()
+    for f0, f1, f2, f3 in fields:
+        kind, dst = f3 & 3, f3 >> 2
+        if kind == WAIT:
+            in_flight.clear()
+            continue
+        reads = {MAJ: (f0, f1, f2), LOAD: (), STORE: (f0,)}[kind]
+        assert {f >> 1 for f in reads} <= written - in_flight
+        if kind == STORE:
+            stored.append(f1)
+            continue
+        assert 0 < dst < cp.n_slots
+        written.add(dst)
+        if kind == MAJ:
+            assert not (f1 & 1 or f2 & 1)
+        else:
+            in_flight.add(dst)
+    assert sorted(stored) == list(range(cp.out_bits))
+    assert cp.n_maj == sum(f[3] & 3 == MAJ for f in fields)
+    assert cp.n_loads == sum(f[3] & 3 == LOAD for f in fields)
+
+
+@pytest.mark.parametrize("style", STYLES)
+@pytest.mark.parametrize("op,n", [(op, n) for op in tc.PAPER_16
+                                  for n in (8, 16)]
+                         + [("mul", 8), ("div", 8)])
+def test_compiled_stream_matches_execute(op, n, style):
+    spec = tc.OPS[op]
+    prog = tc.get_uprogram(op, n, style)
+    ins = _inputs(op, n, 150, seed=n + len(op))
+    bps = [tc.pack_np(x, n, device=CPU) for x in ins]
+    lp = lower(prog, spec.input_names, [n] * spec.n_inputs, spec.out_bits(n))
+    cp = compile_lowered(lp)
+    _check_structure(cp, len(prog.flatten()), lp.n_slots)
+    got = _interpret_compiled(cp, [bp.to_numpy() for bp in bps],
+                              bps[0].n_words)
+    ref = tc.execute(prog, dict(zip(spec.input_names,
+                                    [bp.planes for bp in bps])),
+                     bps[0].n_words, out_bits=spec.out_bits(n))
+    np.testing.assert_array_equal(got, ref.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("style", STYLES)
+@pytest.mark.parametrize("op", list(tc.PAPER_16))
+def test_compiled_stream_at_32_bits_is_smaller(op, style):
+    spec = tc.OPS[op]
+    prog = tc.get_uprogram(op, 32, style)
+    lp = lower(prog, spec.input_names, [32] * spec.n_inputs,
+               spec.out_bits(32))
+    cp = compile_lowered(lp)
+    _check_structure(cp, len(prog.flatten()), lp.n_slots)
+    assert cp.n_maj < len(prog.flatten())
+
+
+@pytest.mark.parametrize("case,widths,out_bits", [
+    (hand_program, {"A": 2}, 4), (alias_program, {"A": 2, "B": 1}, 7)])
+def test_compiled_corner_cases_match_execute(case, widths, out_bits):
+    prog = case()
+    rng = np.random.default_rng(1)
+    planes = [rng.integers(0, 1 << 32, (w, 3), dtype=np.uint64).astype(
+        np.uint32) for w in widths.values()]
+    lp = lower(prog, list(widths), list(widths.values()), out_bits)
+    cp = compile_lowered(lp)
+    _check_structure(cp, len(prog.flatten()), lp.n_slots)
+    got = _interpret_compiled(cp, planes, 3)
+    tplanes = [torch.from_numpy(p.view(np.int32).copy()) for p in planes]
+    ref = tc.execute(prog, dict(zip(widths, tplanes)), 3, out_bits=out_bits)
+    np.testing.assert_array_equal(got, ref.numpy().view(np.uint32))
+    for tp, p in zip(tplanes, planes):          # inputs never written
+        np.testing.assert_array_equal(tp.numpy().view(np.uint32), p)
+
+
+def test_compiled_stream_of_aliased_outputs():
+    cp = compile_lowered(lower(alias_program(), ["A", "B"], [2, 1], 7))
+    kinds = [f[3] & 3 for f in _fields(cp)[:cp.n_instr]]
+    # A[0] and A[1] and B[0] loaded once each, one MAJ (A[0] & B[0]), seven
+    # stores: A[1] twice, ~A[0], the constants C1 and C0, the MAJ, ~B[0]
+    assert (kinds.count(LOAD), kinds.count(MAJ), kinds.count(STORE)) == \
+        (3, 1, 7)
+    out = _interpret_compiled(cp, [np.array([[5], [6]], np.uint32),
+                                   np.array([[3]], np.uint32)], 1)
+    assert out[:, 0].tolist() == [6, 0xFFFFFFFA, 6, 0xFFFFFFFF, 0, 1,
+                                  0xFFFFFFFC]
+
+
+def test_launch_shape_fills_the_card_then_widens_threads():
+    # the main path (2^20 elements, 32,768 words): one word per thread
+    assert launch_shape(5, 1 << 15, 128, 132) == (128, 1)
+    # 2^26 elements: four words per thread, the grid still 2 blocks/SM
+    assert launch_shape(5, 1 << 21, 128, 132) == (128, 4)
+    assert launch_shape(5, 1 << 21, 512, 132) == (512, 2)
+    # div at 32 bits: the row file caps the words per thread
+    assert launch_shape(99, 1 << 21, 128, 132) == (128, 2)
+    assert launch_shape(99, 1 << 21, 1024, 132) == (576, 1)
+    assert launch_shape(5, 1, 1, 132) == (1, 1)
+    # words per thread divide the word count and the planes' alignment
+    assert launch_shape(5, (1 << 21) - 2, 128, 132) == (128, 2)
+    assert launch_shape(5, 1 << 21, 128, 132, align_words=2) == (128, 2)
 
 
 @pytest.mark.parametrize("style", STYLES)
