@@ -46,25 +46,32 @@ Phases (any failure exits non-zero and prints no result line):
               2^20 and 2^26 elements beside their bounds (the VM's: the
               bytes of the planes it reads and writes, or one LOP3 per
               compiled MAJ per word);
-  9. bsmm   — the bit-serial matmul kernel bit-exact against its plain
-              version on the test grid, ragged and unaligned shapes, the
-              decode batches M = 1 and 4, and both main-path shapes;
+  9. bsmm   — the bit-serial matmul kernel (planes packed 1 bit per
+              weight per plane) bit-exact against its plain version on the
+              test grid, ragged and unaligned shapes, the decode batches
+              M = 1 and 4, both main-path shapes and a split-K shape whose
+              K is no multiple of S x 32; the card's dp4a rate measured
+              by a probe kernel;
  10. qlm    — the bit-plane quantized LM at qwen2.5-3b's published widths
               (36 layers, random weights from seed 0) through
               ``repro_torch.examples.simdram_quantized_lm.main``: 108 FFN
               matrices as 8-bit planes, dense and bit-plane forwards on
               SyntheticLMData(4 x 32); 108 kernel launches per quantized
               forward, its logits equal to the same forward through the
-              plain version, perplexities, drift (< 5%) and bytes; the
-              device-busy time of each forward; kernel, plain version and
-              ``torch._int_mm`` timed at both main-path shapes beside the
-              bound;
+              plain version, perplexities, drift (< 5%) and bytes (the
+              packed planes as stored equal ``hbm_bytes`` less the scales);
+              the device-busy time of each forward; kernel, plain version
+              and ``torch._int_mm`` timed at both main-path shapes on six
+              layers' matrices in turn (weights from device memory, as in
+              the forward) beside the bound and the dp4a ceiling, with the
+              split-K slices;
  11. result — a JSON line per kernel, the card line, and the ok line last.
 
 Needs one CUDA card; exits with code 2 without one.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import subprocess
@@ -84,6 +91,9 @@ TIE_GAP = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
+#: dp4a per second assumed for the bit-serial kernel's dp4a ceiling: 64 per
+#: SM per clock x 132 SMs x 1.98 GHz (the probe in ``[bsmm]`` measures it)
+DP4A_PER_S = 64 * 132 * 1.98e9
 #: the spin kernel that calls are timed behind: its least length and the
 #: attempts, each with a quarter of the calls, before the timing gives up
 SPIN_MIN_MS, SPIN_TRIES = 5.0, 8
@@ -768,6 +778,12 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
 BSMM_GRID = [(128, 128, 128), (256, 128, 384), (5, 70, 33), (70, 130, 40)]
 BSMM_MAIN = [(128, 2048, 11008), (128, 11008, 2048)]
 BSMM_DECODE = [(m, k, n) for m in (1, 4) for _, k, n in BSMM_MAIN]
+#: a split-K shape: 1 x 4 output tiles, K = 4000 (125 packed words) cut into
+#: slices of whole 4-word chunks, the last one ragged
+BSMM_SPLIT = (64, 4000, 256)
+#: FFN matrices the timing cycles through: 6 x 22.5 MB of packed planes
+#: exceed the 50 MB L2, as one forward's 108 do
+BSMM_ROTATE = 6
 
 
 def _bsmm_operands(torch, gen, M, K, N, n_bits, dev):
@@ -778,19 +794,25 @@ def _bsmm_operands(torch, gen, M, K, N, n_bits, dev):
     return x, w
 
 
-def phase_bsmm(torch, bs, bs_ref, dev):
-    """The kernel against its plain version on the card, bit for bit."""
+def phase_bsmm(torch, bs, bs_ref, dev, card):
+    """The kernel against its plain version on the card, bit for bit; then
+    the card's dp4a rate.  Returns (max abs error, dp4a per second)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     cases = [(s, nb) for s in BSMM_GRID[:3] for nb in (2, 4, 8)]
     cases += [(BSMM_GRID[3], nb) for nb in range(1, 9)]
-    cases += [(s, 8) for s in BSMM_DECODE + BSMM_MAIN]
+    cases += [(s, 8) for s in BSMM_DECODE + BSMM_MAIN + [BSMM_SPLIT]]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for (M, K, N), nb in cases:
         x, w = _bsmm_operands(torch, gen, M, K, N, nb, dev)
         worst = max(worst, _exact(f"bsmm M={M} K={K} N={N} n_bits={nb}",
                                   bs.bsmm_raw(x, w),
                                   bs_ref.ref_bsmm_raw(x, w)))
+    M, K, N = BSMM_SPLIT
+    split = bs.split_k(M, N, K, sms)
+    if split[0] < 2:
+        _fail(f"bsmm {BSMM_SPLIT} does not split K on {sms} SMs")
     # rows off 4-byte boundaries are read byte by byte
     x, w = _bsmm_operands(torch, gen, 9, 72, 40, 8, dev)
     xv = x.reshape(-1)[3:3 + 8 * 72].reshape(8, 72)
@@ -798,42 +820,80 @@ def phase_bsmm(torch, bs, bs_ref, dev):
            bs_ref.ref_bsmm_raw(xv, w))
     print(f"[bsmm] {len(cases) + 1} cases (grid {BSMM_GRID[:2]} and ragged "
           f"(5, 70, 33) x n_bits 2/4/8, (70, 130, 40) x n_bits 1..8, M = 1/4 "
-          f"and 128 at the main path's K x N, an unaligned view): kernel == "
+          f"and 128 at the main path's K x N, split-K {BSMM_SPLIT} in "
+          f"(S, words per slice) {split}, an unaligned view): kernel == "
           f"plain version bit for bit")
-    return worst
+    out = torch.empty(8 * sms * 256, dtype=torch.int32, device=dev)
+    iters = 4096
+    ms = _kernel_ms(torch, lambda: bs.dp4a_probe(out, iters))
+    rate = out.numel() * 8 * iters / ms * 1e3
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    print(f"[bsmm] {card}: dp4a probe ({out.numel()} threads x {8 * iters} "
+          f"dp4a): {ms:.5f} ms, {rate:.4e} dp4a/s = "
+          f"{rate / sms / 1.98e9:.2f} per SM per clock at 1.98 GHz "
+          f"(assumed {DP4A_PER_S:.4e}); clocks.sm, clocks.max.sm: {clocks}")
+    return worst, rate
 
 
-def _bsmm_timing(torch, bs, bs_ref, ql, dev, card):
+def _bsmm_timing(torch, bs, bs_ref, qls, dev, card, dp4a_rate):
     """Kernel, plain version and ``torch._int_mm`` (the same product from
-    the signed int8 weight, one call reading 1/8 of the plane bytes) on one
-    layer's real planes with M = 128 random int8 activation rows."""
-    planes = ql.w_planes
-    n_bits, K, N = planes.shape
+    the signed int8 weight) with M = 128 random int8 activation rows, each
+    call on the next of ``qls``' real packed planes in turn, so the weights
+    come from device memory as in the forward (``BSMM_ROTATE`` matrices
+    exceed the 50 MB L2); the one-matrix (L2-warm) times are printed
+    beside them."""
+    wps = [ql.w_packed for ql in qls]
+    K = qls[0].in_features
+    n_bits, N, kw = wps[0].shape
     M = 128
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     x = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                       dtype=torch.int8)
-    u = sum(planes[b].to(torch.int32) << b for b in range(n_bits))
-    w_signed = (u - (1 << (n_bits - 1))).to(torch.int8)
-    ms = _kernel_ms(torch, lambda: bs.bsmm_raw(x, planes))
-    plain_ms = _kernel_ms(torch, lambda: bs_ref.ref_bsmm_raw(x, planes))
-    library_ms = _kernel_ms(torch, lambda: torch._int_mm(x, w_signed))
-    n_bytes = M * K + planes.numel() + 4 * M * N
+    signed = []
+    for ql in qls:                            # unpacked outside the timing
+        planes = ql.w_planes
+        u = sum(planes[b].to(torch.int32) << b for b in range(n_bits))
+        signed.append((u - (1 << (n_bits - 1))).to(torch.int8))
+        del planes, u
+
+    def rotating(fn, args):
+        it = itertools.cycle(args)
+        return _kernel_ms(torch, lambda: fn(x, next(it)))
+
+    ms = rotating(bs.bsmm_packed, wps)
+    plain_ms = rotating(bs_ref.ref_bsmm_packed, wps)
+    library_ms = rotating(torch._int_mm, signed)
+    warm_ms = _kernel_ms(torch, lambda: bs.bsmm_packed(x, wps[0]))
+    warm_lib = _kernel_ms(torch, lambda: torch._int_mm(x, signed[0]))
+    n_bytes = M * K + 4 * wps[0].numel() + 4 * M * N
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * M * K * N / INT8_OPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[qlm] {card}: bsmm M={M} K={K} N={N} n_bits={n_bits}: kernel "
-          f"{ms:.5f} ms ({n_bytes / ms / 1e6:.1f} GB/s), plain version "
-          f"{plain_ms:.5f} ms, torch._int_mm on the signed int8 weight "
-          f"{library_ms:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
-          f"{n_bytes} B; {2 * M * K * N} int8 ops take {t_ops:.5f} ms)")
+    n_dp4a = M * K * N // 4
+    dp4a_ms = n_dp4a / DP4A_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, words = bs.split_k(M, N, K, sms)
+    print(f"[qlm] {card}: bsmm M={M} K={K} N={N} n_bits={n_bits} (split-K "
+          f"S={splits}, {words} words per slice), {len(wps)} matrices in "
+          f"turn: kernel {ms:.5f} ms ({n_bytes / ms / 1e6:.1f} GB/s, "
+          f"{n_dp4a / ms * 1e3:.4e} dp4a/s), plain version {plain_ms:.5f} "
+          f"ms, torch._int_mm on the signed int8 weight {library_ms:.5f} ms;"
+          f" one matrix (L2-warm): kernel {warm_ms:.5f} ms, torch._int_mm "
+          f"{warm_lib:.5f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{n_bytes} B packed; {2 * M * K * N} int8 ops take {t_ops:.5f} "
+          f"ms on the tensor cores); dp4a ceiling {dp4a_ms:.5f} ms ({n_dp4a}"
+          f" dp4a at the assumed {DP4A_PER_S:.4e}/s; "
+          f"{n_dp4a / dp4a_rate * 1e3:.5f} ms at the probe's rate)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, dp4a_bound_ms=dp4a_ms)
 
 
-def phase_qlm(torch, bs, bs_ref, dev, card):
+def phase_qlm(torch, bs, bs_ref, dev, card, dp4a_rate):
     """The full-width example; returns (launches of its quantized forward,
     max abs difference from the plain-version forward, the timing rows at
     the main path's shapes)."""
@@ -841,10 +901,11 @@ def phase_qlm(torch, bs, bs_ref, dev, card):
     from repro_torch.models.model import forward_train
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    bs.bsmm_raw.launches = 0
+    bs.bsmm_packed.launches = 0
     res = ex.main(device=dev, smoke=False)
     torch.cuda.synchronize()
-    launches = bs.bsmm_raw.launches
+    launches = bs.bsmm_packed.launches
+    peak = torch.cuda.max_memory_allocated()
     wall = time.perf_counter() - t0
     cfg, params, qls, tokens = (res[k] for k in ("cfg", "params", "qls",
                                                  "tokens"))
@@ -857,13 +918,19 @@ def phase_qlm(torch, bs, bs_ref, dev, card):
             or not bool(torch.isfinite(res["ref_logits"]).all())):
         _fail(f"logits {tuple(q_logits.shape)} not finite or not "
               f"[4, 32, {cfg.vocab}]")
-    # the same forward with every product through the plain version
-    kernel = bs.bsmm_raw
-    bs.bsmm_raw = bs_ref.ref_bsmm_raw
+    scale_bytes = sum(4 * q[k].w_scale.numel() for q in qls for k in q)
+    if res["stored_plane_bytes"] != res["plane_bytes"] - scale_bytes:
+        _fail(f"packed planes as stored {res['stored_plane_bytes']} B, "
+              f"hbm_bytes less the scales {res['plane_bytes'] - scale_bytes}"
+              f" B")
+    # the same forward with every product through the plain version (the
+    # entry QuantizedLinear calls)
+    kernel = bs.bsmm_packed
+    bs.bsmm_packed = bs_ref.ref_bsmm_packed
     try:
         q_plain = ex.q_forward(cfg, params, qls, tokens)
     finally:
-        bs.bsmm_raw = kernel
+        bs.bsmm_packed = kernel
     err = (q_logits - q_plain).abs().max().item()
     if not torch.equal(q_logits, q_plain):
         _fail(f"quantized logits through the kernel differ from the plain "
@@ -875,10 +942,10 @@ def phase_qlm(torch, bs, bs_ref, dev, card):
           f"{res['ppl_ref']:.4f}, bit-plane ppl {res['ppl_q']:.4f}, drift "
           f"{res['drift']:.4f}% (< {ex.MAX_DRIFT}%); FFN bytes dense bf16 "
           f"{res['dense_bytes']} B, packed planes {res['plane_bytes']} B "
-          f"(hbm_bytes), planes as stored and read {res['stored_plane_bytes']}"
-          f" B; {wall:.1f} s wall for main (init, quantization, two "
-          f"forwards); max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} B")
+          f"(hbm_bytes), packed planes as stored and read "
+          f"{res['stored_plane_bytes']} B (+ {scale_bytes} B of scales); "
+          f"{wall:.1f} s wall for main (init, quantization, two forwards); "
+          f"max_memory_allocated {peak} B")
     for name, fn in (("dense", lambda: forward_train(cfg, params,
                                                      {"tokens": tokens})),
                      ("bit-plane", lambda: ex.q_forward(cfg, params, qls,
@@ -895,8 +962,8 @@ def phase_qlm(torch, bs, bs_ref, dev, card):
               f"clock, {sum(c for _, c, _ in kernels)} kernels, device busy "
               f"{busy_ms:.3f} ms (idle {1 - busy_ms / call_ms:.1%}); top "
               f"(name, count, ms): {top}")
-    rows = [_bsmm_timing(torch, bs, bs_ref, qls[0][k], dev, card)
-            for k in ("w1", "w2")]
+    rows = [_bsmm_timing(torch, bs, bs_ref, [q[k] for q in qls[:BSMM_ROTATE]],
+                         dev, card, dp4a_rate) for k in ("w1", "w2")]
     del res, params, qls, q_logits, q_plain
     torch.cuda.empty_cache()
     return launches, err, rows
@@ -964,9 +1031,9 @@ def main() -> int:
     print(f"[simdram] phases took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    bsmm_err = phase_bsmm(torch, bs, bs_ref, dev)
+    bsmm_err, dp4a_rate = phase_bsmm(torch, bs, bs_ref, dev, card)
     bsmm_launches, qlm_err, bsmm_rows = phase_qlm(torch, bs, bs_ref, dev,
-                                                  card)
+                                                  card, dp4a_rate)
     print(f"[qlm] phases took {time.perf_counter() - t0:.1f} s")
 
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"

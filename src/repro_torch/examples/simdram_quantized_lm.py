@@ -47,9 +47,10 @@ def config(smoke: bool = True) -> ModelConfig:
 
 def quantize_ffns(cfg: ModelConfig, params
                   ) -> Tuple[List[Dict[str, QuantizedLinear]], int, int]:
-    """Every FFN matrix as ``N_BITS`` bit planes.  Returns (per-layer
-    ``{w1, w2, w3: QuantizedLinear}``, dense bytes counted as bf16, packed
-    plane bytes), the byte figures as the reference example counts them."""
+    """Every FFN matrix as ``N_BITS`` bit planes, packed.  Returns
+    (per-layer ``{w1, w2, w3: QuantizedLinear}``, dense bytes counted as
+    bf16, packed plane bytes), the byte figures as the reference example
+    counts them."""
     stacked = params["stages"][0][0]
     qls, dense_bytes, plane_bytes = [], 0, 0
     for li in range(cfg.n_layers):
@@ -104,7 +105,7 @@ def main(device: Union[str, torch.device] = "cuda", smoke: bool = True
     labels = torch.from_numpy(batch["labels"]).long().to(dev)
 
     qls, dense_bytes, plane_bytes = quantize_ffns(cfg, params)
-    stored = sum(q[k].w_planes.numel() for q in qls for k in FFN)
+    stored = sum(4 * q[k].w_packed.numel() for q in qls for k in FFN)
     ref_logits = forward_train(cfg, params, {"tokens": tokens})
     q_logits = q_forward(cfg, params, qls, tokens)
 
@@ -115,8 +116,8 @@ def main(device: Union[str, torch.device] = "cuda", smoke: bool = True
     print(f"[simdram-lm] FFN weight bytes: dense bf16 {dense_bytes/1e6:.2f}MB"
           f" → bit-planes {plane_bytes/1e6:.2f}MB "
           f"({dense_bytes/plane_bytes:.2f}x less HBM traffic per decode)")
-    print(f"[simdram-lm] bit-planes as stored, one int8 per bit (what the "
-          f"kernel reads): {stored/1e6:.2f}MB")
+    print(f"[simdram-lm] bit-planes as stored, packed 1 bit per weight per "
+          f"plane (what the kernel reads): {stored/1e6:.2f}MB")
     if not drift < MAX_DRIFT:
         raise RuntimeError(f"perplexity drift {drift:.2f}% is not below "
                            f"{MAX_DRIFT}%")

@@ -55,9 +55,9 @@ def _pallas_bsmm(x, w):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_bsmm_equals_pallas_kernel_and_ref(shape, n_bits):
     x, w = _operands(shape, n_bits, seed=n_bits)
-    before = ops.bsmm_raw.launches
+    before = ops.bsmm_packed.launches
     got = ops.bsmm_raw(torch.from_numpy(x), torch.from_numpy(w))
-    assert got.dtype == torch.int32 and ops.bsmm_raw.launches == before
+    assert got.dtype == torch.int32 and ops.bsmm_packed.launches == before
     np.testing.assert_array_equal(got.numpy(), _pallas_bsmm(x, w))
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(j_ref_bsmm(jnp.asarray(x), jnp.asarray(w))))
@@ -142,7 +142,7 @@ def test_quantized_linear_matches_reference(n_bits):
                                         np.asarray(jql.w_scale),
                                         device="cpu")
     assert isinstance(tql, torch.nn.Module)
-    assert {n for n, _ in tql.named_buffers()} == {"w_planes", "w_scale"}
+    assert {n for n, _ in tql.named_buffers()} == {"w_packed", "w_scale"}
     y = tql(torch.from_numpy(x))
     assert y.shape == (2, 9, 120) and y.dtype == torch.float32
     np.testing.assert_allclose(y.numpy(), np.asarray(jql(jnp.asarray(x))),
@@ -168,3 +168,173 @@ def test_wrapper_takes_cpu_or_cuda_only():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ops.QuantizedLinear.from_numpy(np.zeros((2, 4, 3), np.int8),
                                            np.ones(3, np.float32))
+
+
+# -- the packed plane layout and the kernel's arithmetic on it -----------------
+PACK_KS = [0, 1, 31, 32, 33, 70, 130, 2048]
+
+
+def _ref_planes(K, N, n_bits, seed):
+    """The reference's planes of a random [K, N] weight (numpy zeros at
+    K = 0, which the reference's quantizer cannot take)."""
+    if K == 0:
+        return np.zeros((n_bits, 0, N), np.int8)
+    w = np.random.default_rng(seed).standard_normal((K, N))
+    return np.asarray(j_quant_w(jnp.asarray(w.astype(np.float32)),
+                                n_bits)[0])
+
+
+def _np_pack(planes):
+    """numpy's own packing: bit j of word [b, n, w] is planes[b, 32 w + j,
+    n], as uint32."""
+    nb, K, N = planes.shape
+    kw = -(-K // 32)
+    bits = np.zeros((nb, N, 32 * kw), np.uint8)
+    bits[:, :, :K] = planes.transpose(0, 2, 1)
+    return np.packbits(bits, axis=-1, bitorder="little").view("<u4")
+
+
+@pytest.mark.parametrize("K", PACK_KS)
+@pytest.mark.parametrize("n_bits", range(1, 9))
+def test_pack_planes_round_trips_reference_planes(n_bits, K):
+    planes = _ref_planes(K, 5, n_bits, seed=K + n_bits)
+    packed = ref.pack_planes(torch.from_numpy(planes))
+    assert packed.dtype == torch.int32 and packed.shape == (n_bits, 5,
+                                                            -(-K // 32))
+    np.testing.assert_array_equal(packed.numpy().view(np.uint32),
+                                  _np_pack(planes))
+    np.testing.assert_array_equal(ref.unpack_planes(packed, K).numpy(),
+                                  planes)
+
+
+@pytest.mark.parametrize("K", [1, 31, 33, 70, 130])
+def test_pack_planes_zeroes_the_bits_past_k(K):
+    """All-ones planes: the last word holds exactly K % 32 low bits."""
+    packed = ref.pack_planes(torch.ones((8, K, 3), dtype=torch.int8))
+    words = packed.numpy().view(np.uint32)
+    assert (words[..., :-1] == 0xFFFFFFFF).all()
+    assert (words[..., -1] == (1 << (K % 32)) - 1).all()
+
+
+def _np_byte_perm(a, b, sel):
+    """CUDA's __byte_perm(a, b, sel) on uint32 arrays."""
+    src = [(a >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)] + \
+          [(b >> np.uint32(8 * i)) & np.uint32(0xFF) for i in range(4)]
+    return sum(src[(sel >> (4 * i)) & 7] << np.uint32(8 * i)
+               for i in range(4)).astype(np.uint32)
+
+
+def _np_expand32(p):
+    """numpy model of ``csrc/bitserial_matmul.cu::expand32``: 8 plane words
+    (uint32 [8, ...], planes past n_bits zero) → the 8 u words of those
+    32 k, step by step as the kernel computes them."""
+    u32 = np.uint32
+
+    def byte_transpose4(p0, p1, p2, p3):
+        t0, t1 = _np_byte_perm(p0, p1, 0x5140), _np_byte_perm(p2, p3, 0x5140)
+        t2, t3 = _np_byte_perm(p0, p1, 0x7362), _np_byte_perm(p2, p3, 0x7362)
+        return [_np_byte_perm(t0, t1, 0x5410), _np_byte_perm(t0, t1, 0x7632),
+                _np_byte_perm(t2, t3, 0x5410), _np_byte_perm(t2, t3, 0x7632)]
+
+    def swap_half(v):
+        t = (v ^ (v >> u32(7))) & u32(0x00AA00AA)
+        v = v ^ t ^ (t << u32(7))
+        t = (v ^ (v >> u32(14))) & u32(0x0000CCCC)
+        return v ^ t ^ (t << u32(14))
+
+    a, c = byte_transpose4(*p[:4]), byte_transpose4(*p[4:])
+    out = []
+    for y in range(4):
+        lo, hi = swap_half(a[y]), swap_half(c[y])
+        t = (lo ^ (hi << u32(4))) & u32(0xF0F0F0F0)
+        out += [lo ^ t, hi ^ (t >> u32(4))]
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("n_bits", range(1, 9))
+def test_kernel_expansion_model_equals_u(n_bits):
+    """The kernel turns the packed words of 32 k of one column into u =
+    Σ_b W_b << b, byte t of u word i being k = 4 i + t: the word dp4a
+    multiplies with four x bytes."""
+    planes = _ref_planes(130, 7, n_bits, seed=n_bits)
+    words = _np_pack(planes)                       # [n_bits, N, 5]
+    p = np.zeros((8,) + words.shape[1:], np.uint32)
+    p[:n_bits] = words
+    got = _np_expand32(p)                          # [8, N, 5]: word i
+    u = sum(planes[b].astype(np.uint32) << b for b in range(n_bits))
+    up = np.zeros((32 * 5, 7), np.uint32)
+    up[:130] = u
+    # u word i of packed word w: bytes u[32 w + 4 i + t], t = 0..3
+    want = (up.reshape(5, 8, 4, 7) << (8 * np.arange(4, dtype=np.uint32)
+                                       )[None, None, :, None]).sum(2)
+    np.testing.assert_array_equal(got, want.transpose(1, 2, 0))
+
+
+@pytest.mark.parametrize("n_bits", [1, 3, 8])
+@pytest.mark.parametrize("shape", SHAPES + [(3, 31, 7), (2, 33, 5)])
+def test_packed_entry_plain_equals_pallas_kernel(shape, n_bits):
+    """The entry's CPU plain version on packed planes equals the
+    reference's kernel (interpret mode), ragged K included."""
+    x, w = _operands(shape, n_bits, seed=10 + n_bits)
+    before = ops.bsmm_packed.launches
+    got = ops.bsmm_packed(torch.from_numpy(x),
+                          ref.pack_planes(torch.from_numpy(w)))
+    assert ops.bsmm_packed.launches == before
+    np.testing.assert_array_equal(got.numpy(), _pallas_bsmm(x, w))
+
+
+@pytest.mark.parametrize("M,K,N,sms", [
+    (128, 2048, 11008, 132), (128, 11008, 2048, 132), (1, 11008, 2048, 132),
+    (64, 4000, 256, 132), (128, 11008, 2048, 114), (1024, 1024, 4096, 132),
+    (128, 128, 128, 132), (5, 70, 33, 132), (3, 0, 5, 132), (2, 1, 9, 4),
+    (8, 4000, 16, 4)])
+def test_split_k_cuts_k_into_whole_chunks(M, K, N, sms):
+    """S > 1 only where the tiles give fewer than 2 blocks per SM; then S
+    slices of whole 4-word chunks, each of at least MIN_SLICE_CHUNKS, cover
+    the packed words once, none empty, and the products of the slices add
+    up to the whole, modulo 2^32."""
+    splits, words = ops.split_k(M, N, K, sms)
+    kw = -(-K // 32)
+    tiles = -(-M // ops.BM) * -(-N // ops.BN)
+    assert words % ops.CHUNK_WORDS == 0 and splits >= 1
+    assert (splits - 1) * words < max(kw, 1) <= splits * words or kw == 0
+    if splits > 1:
+        assert tiles < ops.BLOCKS_PER_SM * sms
+        assert words // ops.CHUNK_WORDS >= ops.MIN_SLICE_CHUNKS
+    if (M, K, N, sms) in [(128, 2048, 11008, 132), (128, 11008, 2048, 132)]:
+        assert splits == {2048: 3, 11008: 8}[K]      # the main path's S
+    if (M, K, N, sms) == (8, 4000, 16, 4):
+        assert splits > 1
+    if K and M * N <= 4096:
+        rng = np.random.default_rng(M + K)
+        x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+        w = torch.from_numpy(rng.integers(0, 2, (8, K, N)).astype(np.int8))
+        parts = sum(ref.ref_bsmm_raw(x[:, 32 * words * z:32 * words * (z + 1)],
+                                     w[:, 32 * words * z:32 * words * (z + 1)]
+                                     ).to(torch.int64)
+                    for z in range(splits))
+        assert torch.equal(parts.to(torch.int32), ref.ref_bsmm_raw(x, w))
+
+
+@pytest.mark.parametrize("K", [64, 96, 200, 70])
+def test_quantized_linear_stores_packed_planes(K):
+    """Only the packed words and the scales are stored; ``w_planes`` reads
+    back the reference's planes after ``from_numpy`` and ``from_dense``;
+    ``stored_bytes`` equals ``hbm_bytes`` where K is a multiple of 32."""
+    rng = np.random.default_rng(K)
+    w = rng.standard_normal((K, 40)).astype(np.float32)
+    jql = JQuantizedLinear.from_dense(jnp.asarray(w), n_bits=8)
+    planes = np.asarray(jql.w_planes)
+    for ql in (ops.QuantizedLinear.from_numpy(planes,
+                                              np.asarray(jql.w_scale),
+                                              device="cpu"),
+               ops.QuantizedLinear.from_dense(torch.from_numpy(w), 8)):
+        assert {n for n, _ in ql.named_buffers()} == {"w_packed", "w_scale"}
+        assert ql.in_features == K and ql.w_packed.shape == (8, 40,
+                                                             -(-K // 32))
+        np.testing.assert_array_equal(ql.w_packed.numpy().view(np.uint32),
+                                      _np_pack(planes))
+        np.testing.assert_array_equal(ql.w_planes.numpy(), planes)
+        assert ql.hbm_bytes == jql.hbm_bytes
+        assert ql.stored_bytes == 4 * (8 * 40 * -(-K // 32) + 40)
+        assert (ql.stored_bytes == ql.hbm_bytes) == (K % 32 == 0)

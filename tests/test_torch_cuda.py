@@ -18,9 +18,10 @@ runs on a machine without JAX:
     2 and 4 words per thread, div at 32 bits in blocks of 1,024),
     their wrappers refuse what the kernels do not take, and a CUDA
     ``apply_op`` goes through the VM kernel and never through ``execute``;
-  * the bit-serial matmul kernel agrees bit for bit with its plain version
-    (the test grid, ragged and unaligned shapes, decode batches, the main
-    path's shapes), its wrapper refuses what it does not take, and the
+  * the bit-serial matmul kernel, on packed planes, agrees bit for bit with
+    its plain version (the test grid, ragged and unaligned shapes, decode
+    batches, the main path's shapes, with and without split-K), its
+    wrapper refuses what it does not take, and the
     quantized layers, ``qmm`` (``torch._int_mm``) and the quantized model
     on the card agree with the CPU (1e-6 relative for one layer: the same
     int32 sums, float32 scales; 1e-4 for logits: float32 layers summed in
@@ -381,6 +382,8 @@ def test_bsmm_kernel_matches_plain(dev, shape, n_bits):
     assert got.dtype == torch.int32 and got.shape == (shape[0], shape[2])
     assert torch.equal(got, bs_ref.ref_bsmm_raw(x, w))
     assert torch.equal(got.cpu(), bs.bsmm_raw(x.cpu(), w.cpu()))
+    wp = bs_ref.pack_planes(w)
+    assert torch.equal(bs.bsmm_packed(x, wp), got)
 
 
 @pytest.mark.parametrize("shape", [(128, 2048, 11008), (128, 11008, 2048)])
@@ -389,12 +392,38 @@ def test_bsmm_kernel_at_main_path_shapes(dev, shape):
     assert torch.equal(bs.bsmm_raw(x, w), bs_ref.ref_bsmm_raw(x, w))
 
 
+#: (M, K, N, split): the w2 and w1/w3 shapes split K on an H100 SXM (132
+#: SMs; the kernel itself splits for the card it runs on); a
+#: grid of 8 x 64 output tiles does not; (64, 4000, 256) splits a K that is no
+#: multiple of S x 32 (125 words in slices of whole 4-word chunks); the
+#: decode batches M = 1 and 4 at both main-path shapes
+SPLIT_SHAPES = [(128, 11008, 2048, True), (128, 2048, 11008, True),
+                (1024, 1024, 4096, False), (64, 4000, 256, True),
+                (1, 2048, 11008, True), (4, 11008, 2048, True),
+                (1, 11008, 2048, True), (4, 2048, 11008, True)]
+
+
+@pytest.mark.parametrize("M,K,N,split", SPLIT_SHAPES)
+def test_bsmm_kernel_with_and_without_split_k(dev, M, K, N, split):
+    assert (bs.split_k(M, N, K, 132)[0] > 1) == split
+    x, w = _bsmm_operands(M, K, N, 8, seed=M + K, device=dev)
+    wp = bs_ref.pack_planes(w)
+    got = bs.bsmm_packed(x, wp)
+    assert torch.equal(got, bs_ref.ref_bsmm_packed(x, wp))
+    assert torch.equal(got, bs.bsmm_packed(x, wp))      # deterministic
+
+
 def test_bsmm_kernel_on_unaligned_rows_and_empty_k(dev):
     """Rows that do not start on 4-byte boundaries (a view at an odd
-    offset, odd K and N) are read byte by byte; K = 0 gives zeros."""
+    offset, odd K and N) are read byte by byte, rows on 4- but not 16-byte
+    boundaries a word at a time; K = 0 gives zeros."""
     x, w = _bsmm_operands(9, 72, 40, 8, seed=5, device=dev)
     xv = x.reshape(-1)[3:3 + 8 * 72].reshape(8, 72)          # offset 3 B
     assert xv.is_contiguous() and xv.data_ptr() % 4 == 3
+    assert torch.equal(bs.bsmm_raw(xv, w), bs_ref.ref_bsmm_raw(xv, w))
+    x, w = _bsmm_operands(9, 2048, 40, 8, seed=7, device=dev)
+    xv = x.reshape(-1)[4:4 + 8 * 2048].reshape(8, 2048)      # offset 4 B
+    assert xv.data_ptr() % 16 == 4
     assert torch.equal(bs.bsmm_raw(xv, w), bs_ref.ref_bsmm_raw(xv, w))
     x, w = _bsmm_operands(3, 0, 5, 4, seed=6, device=dev)
     assert torch.equal(bs.bsmm_raw(x, w),
@@ -405,21 +434,26 @@ def test_bsmm_kernel_on_unaligned_rows_and_empty_k(dev):
 
 def test_bsmm_wrapper_counts_and_refuses(dev):
     x, w = _bsmm_operands(4, 64, 32, 8, seed=2, device=dev)
-    before = bs.bsmm_raw.launches
-    bs.bsmm_raw(x, w)
-    assert bs.bsmm_raw.launches == before + 1
-    bad = [(x.float(), w, TypeError), (x, w.to(torch.uint8), TypeError),
-           (x.t(), w, ValueError),                         # non-contiguous
-           (x, w.transpose(1, 2), ValueError),
-           (x[:, :32], w, ValueError),                     # K mismatch
-           (x, torch.zeros((9, 64, 32), dtype=torch.int8, device=dev),
+    wp = bs_ref.pack_planes(w)
+    before = bs.bsmm_packed.launches
+    bs.bsmm_packed(x, wp)
+    assert bs.bsmm_packed.launches == before + 1
+    bs.bsmm_raw(x, w)                       # packs, then one launch
+    assert bs.bsmm_packed.launches == before + 2
+    bad = [(x.float(), wp, TypeError), (x, wp.to(torch.int8), TypeError),
+           (x, w, TypeError),                              # unpacked planes
+           (x.t(), wp, ValueError),                        # non-contiguous
+           (x, wp.transpose(1, 2), ValueError),
+           (x, wp[:, :, :1].contiguous(), ValueError),     # word count
+           (x[:, :32], wp, ValueError),                    # K mismatch
+           (x, torch.zeros((9, 32, 2), dtype=torch.int32, device=dev),
             ValueError),                                   # 9 planes
-           (x, w[0], ValueError),                          # 2-D planes
-           (x, w.cpu(), ValueError)]                       # device mix
+           (x, wp[0], ValueError),                         # 2-D planes
+           (x, wp.cpu(), ValueError)]                      # device mix
     for xx, ww, err in bad:
         with pytest.raises(err):
-            bs.bsmm_raw(xx, ww)
-    assert bs.bsmm_raw.launches == before + 1
+            bs.bsmm_packed(xx, ww)
+    assert bs.bsmm_packed.launches == before + 2
 
 
 def test_quantized_linear_and_qmm_on_card_match_cpu(dev):
@@ -428,12 +462,13 @@ def test_quantized_linear_and_qmm_on_card_match_cpu(dev):
     ql = bs.QuantizedLinear.from_dense(w)
     qc = bs.QuantizedLinear.from_dense(w.to(dev))
     assert torch.equal(qc.w_planes.cpu(), ql.w_planes)
+    assert torch.equal(qc.w_packed.cpu(), ql.w_packed)
     assert torch.equal(qc.w_scale.cpu(), ql.w_scale)
     for shape in ((1, 200), (2, 9, 200), (40, 200)):
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-        before = bs.bsmm_raw.launches
+        before = bs.bsmm_packed.launches
         y = qc(x.to(dev))
-        assert bs.bsmm_raw.launches == before + 1
+        assert bs.bsmm_packed.launches == before + 1
         torch.testing.assert_close(y.cpu(), ql(x), rtol=1e-6, atol=0)
     # qmm pads M to 17 and K, N to multiples of 8 for torch._int_mm, whose
     # weight goes in column-major (a row-major one is refused at M = 17-48
@@ -469,16 +504,16 @@ def test_quantized_model_on_card_matches_cpu(dev):
 
 def test_smoke_example_on_card_goes_through_the_kernel(dev, monkeypatch):
     cpu = simdram_quantized_lm.main(device="cpu", smoke=True)
-    before = bs.bsmm_raw.launches
+    before = bs.bsmm_packed.launches
     res = simdram_quantized_lm.main(device=dev, smoke=True)
-    assert bs.bsmm_raw.launches == before + 3 * res["cfg"].n_layers
+    assert bs.bsmm_packed.launches == before + 3 * res["cfg"].n_layers
     assert res["drift"] < simdram_quantized_lm.MAX_DRIFT
     for k in ("dense_bytes", "plane_bytes", "stored_plane_bytes"):
         assert res[k] == cpu[k]
     # the card draws other random weights than the CPU, so the perplexities
     # are not compared; the same forward through the plain version on the
     # card gives the same logits
-    monkeypatch.setattr(bs, "bsmm_raw", bs_ref.ref_bsmm_raw)
+    monkeypatch.setattr(bs, "bsmm_packed", bs_ref.ref_bsmm_packed)
     q_plain = simdram_quantized_lm.q_forward(res["cfg"], res["params"],
                                              res["qls"], res["tokens"])
     assert torch.equal(res["q_logits"], q_plain)

@@ -204,8 +204,9 @@ def test_smoke_example_matches_reference_computation():
                                           np.asarray(jq[k].w_scale))
     assert res["dense_bytes"] == want["dense_bytes"]
     assert res["plane_bytes"] == want["plane_bytes"]
-    assert res["stored_plane_bytes"] == 8 * sum(
-        q[k].w_planes.size // 8 for q in want["qls"] for k in q)
+    assert res["stored_plane_bytes"] == sum(             # packed words
+        4 * q[k].w_planes.shape[0] * q[k].w_planes.shape[2]
+        * -(-q[k].w_planes.shape[1] // 32) for q in want["qls"] for k in q)
     np.testing.assert_allclose(res["ref_logits"].numpy(),
                                np.asarray(want["ref_logits"]), **TOL)
     got, ref_q = res["q_logits"].numpy(), np.asarray(want["q_logits"])
