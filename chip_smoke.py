@@ -12,9 +12,14 @@ Phases (any failure exits non-zero and prints no result line):
               from the sources in this checkout, one nvcc each, all at once,
               and print ptxas' register/spill report;
   3. kernel — hold the paged-attention kernel against its plain twins on
-              the test grid and at the main path's shape, then time kernel,
-              plain twin and a library yardstick with CUDA events beside the
-              byte bound;
+              the test grid and at the main path's shape (lengths up to
+              2,048), with the planned and forced page splits across
+              blocks and 1, 3 or the planned warps per block; every launch
+              twice, bit-equal; seq_len 0 gives zeros; ids outside the pool
+              past seq_len never dereferenced.  Then time kernel, its
+              simplest form, plain twin and a library yardstick with CUDA
+              events beside the byte bound at seq_len 19, 256, 2,048 and
+              mixed [19, 256, 2048, 0], with the split plan;
   4. serve  — full-width qwen3-0.6b (random weights from a seed) through
               ``repro_torch.launch.serve.main``: 6 requests, 4 slots, decode
               horizon 8, attention through the kernel.  Every request's
@@ -178,20 +183,41 @@ def _kernel_busy(torch, fn):
 
 
 def _pool(torch, gen, S, n_kv, g, d, ps, n_pages, width, seq_lens, dev):
-    """Random paged-attention inputs: distinct non-null pages per row, a
-    table wider than ``max_pages`` (so the row stride matters)."""
+    """Random paged-attention inputs: distinct non-null pages per row (and
+    across rows where the pool holds them all, so that every row's K/V
+    bytes are its own), a table wider than ``max_pages`` (so the row
+    stride matters)."""
     q = torch.randn((S, n_kv, g, d), generator=gen, device=dev) / math.sqrt(d)
     k = torch.randn((n_pages, ps, n_kv, d), generator=gen, device=dev)
     v = torch.randn((n_pages, ps, n_kv, d), generator=gen, device=dev)
-    rows = [torch.randperm(n_pages - 1, generator=gen, device=dev)[:width] + 1
-            for _ in range(S)]
-    pt = torch.stack(rows).to(torch.int32)
+    if S * width <= n_pages - 1:
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+        pt = perm[:S * width].view(S, width).to(torch.int32)
+    else:
+        pt = torch.stack([
+            torch.randperm(n_pages - 1, generator=gen, device=dev)[:width] + 1
+            for _ in range(S)]).to(torch.int32)
     lens = torch.tensor(seq_lens, dtype=torch.int32, device=dev)
     return q, k, v, pt, lens
 
 
+#: the serve's attention shape (4 slots, 8 kv heads, g 2, d 128, pages of
+#: 8) with its 32-page rows, and with 256-page rows for 2,048 tokens:
+#: (seq_lens, max_pages, pages in the pool)
+PA_MAIN = [([0, 1, 7, 8], 32, 129), ([9, 255, 256, 17], 32, 129),
+           ([19, 2048, 0, 700], 256, 4 * 258 + 1)]
+#: timed: (label, seq_lens, max_pages, pool pages); 19 is the serve's
+#: length after its last token, 2,048 a long context
+PA_TIMED = [("19", [19] * 4, 32, 129), ("256", [256] * 4, 32, 129),
+            ("2048", [2048] * 4, 256, 4 * 258 + 1),
+            ("mixed", [19, 256, 2048, 0], 256, 4 * 258 + 1)]
+
+
 def phase_kernel(torch, pa, ops, batched, dev):
-    """Kernel vs plain twins on the test grid and the main-path shape."""
+    """Kernel vs plain twins on the test grid (warps per block and forced
+    page splits crossed) and at the main path's shape up to 2,048 tokens;
+    seq_len 0 gives zeros, two calls are bit-equal, the split counters end
+    at 0, and pages past seq_len are never dereferenced."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     worst = 0.0
@@ -200,57 +226,91 @@ def phase_kernel(torch, pa, ops, batched, dev):
         for d in (8, 16):
             for ps in (2, 4):
                 cases.append((n_kv, g, d, ps, 12, 8, [0, 1, 5, 16, 31]))
-    cases.append((8, 2, 128, 8, 129, 32, [0, 1, 7, 8]))
-    cases.append((8, 2, 128, 8, 129, 32, [9, 255, 256, 17]))
+    cases += [(8, 2, 128, 8, n_pages, max_pages, lens)
+              for lens, max_pages, n_pages in PA_MAIN]
+    n_checked = 0
     for n_kv, g, d, ps, n_pages, max_pages, lens in cases:
         width = min(max_pages + 2, n_pages - 1)
         q, k, v, pt, ln = _pool(torch, gen, len(lens), n_kv, g, d, ps,
                                 n_pages, width, lens, dev)
-        out = pa(q, k, v, pt, ln, max_pages)
-        torch.cuda.synchronize()
         refs = (("ref_paged_attention", ops._plain(q, k, v, pt, ln,
                                                    max_pages)),
                 ("batched_paged_attention", batched(q, k, v, pt, ln,
                                                     max_pages)))
-        # the default token split and two others (one warp per query row,
-        # an odd count) must agree alike
-        for splits in (None, 1, 3 if 3 * g <= ops.MAX_WARPS else 1):
-            got = pa(q, k, v, pt, ln, max_pages, splits=splits)
+        # the planned launch, one warp per block, an odd warp count, each
+        # with the planned and with forced page splits (2 and 5 blocks
+        # reach the merge; 1 is the simplest form of the kernel)
+        for splits, blocks in itertools.product((None, 1, 3),
+                                                (None, 1, 2, 5)):
+            got = pa(q, k, v, pt, ln, max_pages, splits=splits,
+                     blocks=blocks)
+            again = pa(q, k, v, pt, ln, max_pages, splits=splits,
+                       blocks=blocks)
+            torch.cuda.synchronize()
             for name, ref in refs:
                 err = (got - ref).abs().max().item()
                 ok = torch.allclose(got, ref, atol=ATOL, rtol=RTOL)
                 if not ok or not torch.isfinite(got).all():
-                    _fail(f"kernel (splits={splits}) vs {name} at "
-                          f"n_kv={n_kv} g={g} d={d} ps={ps} seq_lens={lens}: "
-                          f"max abs err {err:.3e}")
+                    _fail(f"kernel (splits={splits}, blocks={blocks}) vs "
+                          f"{name} at n_kv={n_kv} g={g} d={d} ps={ps} "
+                          f"max_pages={max_pages} seq_lens={lens}: max abs "
+                          f"err {err:.3e}")
                 worst = max(worst, err)
-        zero = out[[i for i, x in enumerate(lens) if x == 0]]
-        if zero.numel() and zero.abs().max().item() != 0.0:
-            _fail("seq_len 0 must give zeros")
+            if not torch.equal(got, again):
+                _fail(f"two calls (splits={splits}, blocks={blocks}) at "
+                      f"seq_lens={lens} differ")
+            zero = got[[i for i, x in enumerate(lens) if x == 0]]
+            if zero.numel() and zero.abs().max().item() != 0.0:
+                _fail("seq_len 0 must give zeros")
+            n_checked += 1
+    if any(c.any().item() for _, c in ops._scratch.values()):
+        _fail("a split launch left its ticket counters off 0")
     # junk past seq_len (null page included) must not change the output
     q, k, v, pt, ln = _pool(torch, gen, 1, 1, 2, 16, 2, 6, 4, [3], dev)
     pt2 = pt.clone()
     pt2[0, 2:] = torch.tensor([0, 5], dtype=torch.int32, device=dev)
     if not torch.equal(pa(q, k, v, pt, ln, 4), pa(q, k, v, pt2, ln, 4)):
         _fail("kernel output depends on pages past seq_len")
-    print(f"[kernel] {len(cases)} grid/main-path cases + garbage-page case: "
+    # ids outside the pool past seq_len must never be dereferenced
+    lens, max_pages, n_pages = PA_MAIN[-1]
+    q, k, v, pt, ln = _pool(torch, gen, 4, 8, 2, 128, 8, n_pages,
+                            max_pages + 2, lens, dev)
+    bad = pt.clone()
+    for s, n in enumerate(lens):
+        used = -(-n // 8)
+        bad[s, used:] = torch.where(
+            torch.arange(bad.shape[1] - used, device=dev) % 2 == 0, -1,
+            n_pages + 1000).to(torch.int32)
+    for blocks in (None, 1, 3):
+        want = pa(q, k, v, pt, ln, max_pages, blocks=blocks)
+        got = pa(q, k, v, bad, ln, max_pages, blocks=blocks)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            _fail(f"out-of-range page ids past seq_len changed the output "
+                  f"(blocks={blocks})")
+    print(f"[kernel] {len(cases)} grid/main-path cases x 12 (splits x "
+          f"blocks) = {n_checked} launches, each twice and bit-equal; "
           f"kernel == plain twins within atol={ATOL} rtol={RTOL} (fp32, "
-          f"different summation order); max abs err {worst:.3e}")
+          f"different summation order); max abs err {worst:.3e}; "
+          f"garbage and out-of-range pages past seq_len ignored; split "
+          f"counters back at 0")
     return worst
 
 
-def phase_timing(torch, F, pa, batched, dev, seq_len):
-    """Time kernel, plain twin and the library yardstick at the main path's
-    decode shape (4 slots, 8 kv heads, g=2, d=128, ps=8, 32-page rows)."""
-    S, n_kv, g, d, ps, n_pages, max_pages = 4, 8, 2, 128, 8, 129, 32
+def phase_timing(torch, F, pa, ops, batched, dev, label, lens, max_pages,
+                 n_pages):
+    """Time kernel, its simplest form (one block, one warp), plain twin and
+    the library yardstick at the main path's decode shape (4 slots, 8 kv
+    heads, g=2, d=128, ps=8) at these lengths; print the plan."""
+    S, n_kv, g, d, ps = len(lens), 8, 2, 128, 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     q, k, v, pt, ln = _pool(torch, gen, S, n_kv, g, d, ps, n_pages,
-                            max_pages, [seq_len] * S, dev)
-    n_tok = [min(int(x), max_pages * ps) for x in ln.tolist()]
+                            max_pages, lens, dev)
+    n_tok = [min(int(x), max_pages * ps) for x in lens]
     ms, call_ms = _time_ms(torch, lambda: pa(q, k, v, pt, ln, max_pages))
     one_ms, _ = _time_ms(torch, lambda: pa(q, k, v, pt, ln, max_pages,
-                                           splits=1))
+                                           blocks=1, splits=1))
     plain_ms, plain_call = _time_ms(
         torch, lambda: batched(q, k, v, pt, ln, max_pages))
 
@@ -271,12 +331,22 @@ def phase_timing(torch, F, pa, batched, dev, seq_len):
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"[kernel] seq_len {seq_len}, device ms per call: kernel "
-          f"{ms:.5f} (one warp per query row: {one_ms:.5f}), plain twin "
-          f"{plain_ms:.5f}, gather+SDPA {library_ms:.5f}; bound "
-          f"{bound_ms:.6f} ({bound_by}: {n_bytes} B, {flops} flop); host "
-          f"clock per call incl. launch overhead: kernel {call_ms:.5f}, "
-          f"plain {plain_call:.5f}, gather+SDPA {library_call:.5f}")
+    n_sm = ops._sm_count(dev.index)
+    P = ops.split_plan(S, n_kv, max_pages, ps, n_sm)
+    warps = ops.default_warps(max_pages, ps, d, P)
+    used = [ops.blocks_used(t, P, max_pages, ps, d) for t in n_tok]
+    # the kernel streams K/V past L1 once its working blocks fill the SMs
+    loads = "streaming" if n_kv * sum(used) >= n_sm else "L1-allocating"
+    print(f"[kernel] seq_len {label} {lens}, device ms per call: kernel "
+          f"{ms:.5f} (one block of one warp per (kv head, slot): "
+          f"{one_ms:.5f}), plain twin {plain_ms:.5f}, gather+SDPA "
+          f"{library_ms:.5f}; bound {bound_ms:.6f} ({bound_by}: {n_bytes} "
+          f"B, {flops} flop); plan: P {P} blocks of {warps} warps per (kv "
+          f"head, slot), blocks with work per slot {used} ({n_kv * sum(used)} "
+          f"of {S * n_kv * P}; {loads} loads on {n_sm} SMs); host clock per "
+          f"call incl. launch overhead: "
+          f"kernel {call_ms:.5f}, plain {plain_call:.5f}, gather+SDPA "
+          f"{library_call:.5f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -387,11 +457,13 @@ def phase_sync_free(torch, engine, card):
     else:
         n_kernels = sum(c for _, c, _ in kernels)
         top = [(name[:60], c, ms) for name, c, ms in kernels[:5]]
+        attn = [(c, ms) for name, c, ms in kernels if "paged_attn" in name]
         print(f"[horizon] profiled call: {n_kernels} kernels "
               f"({n_kernels / k:.0f} per token step), device busy "
               f"{busy_ms:.3f} ms, so the device idles "
               f"{1 - busy_ms / call_ms:.1%} of the unprofiled call; top "
-              f"kernels by device time (name, count, ms): {top}")
+              f"kernels by device time (name, count, ms): {top}; paged "
+              f"attention (launches, ms): {attn}")
     for blk in list(engine.alloc.blocks.values()):
         engine.alloc.free(blk)
 
@@ -1012,8 +1084,10 @@ def main() -> int:
     print(f"[build] 4 libraries in {time.perf_counter() - t0:.1f} s")
 
     max_err = phase_kernel(torch, pa, ops, batched_paged_attention, dev)
-    timing = phase_timing(torch, F, pa, batched_paged_attention, dev, 19)
-    phase_timing(torch, F, pa, batched_paged_attention, dev, 256)
+    timings = {label: phase_timing(torch, F, pa, ops,
+                                   batched_paged_attention, dev, label, *rest)
+               for label, *rest in PA_TIMED}
+    timing = timings["19"]
 
     launches, engine = phase_serve(torch, pa, card)
     phase_sync_free(torch, engine, card)

@@ -5,9 +5,12 @@ runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
   * the hand-written paged-attention kernel agrees with both plain twins
-    on the test grid and the main path's shape (fp32, 1e-5: the same math
-    summed in another order);
-  * junk pages past seq_len cannot change the output; seq_len 0 gives 0;
+    on the test grid (warps per block and forced page splits crossed) and
+    the main path's shape up to 2,048 tokens (fp32, 1e-5: the same math
+    summed in another order); two calls are bit-equal, and the split
+    launches leave their counters at 0;
+  * junk pages past seq_len, out-of-range ids included, cannot change the
+    output or fault; seq_len 0 gives 0;
   * the wrapper refuses what the kernel does not take, and a CUDA engine
     refuses the plain twin;
   * the engine's decode horizon enqueues work only: no host sync under
@@ -72,28 +75,67 @@ def _inputs(S, n_kv, g, d, ps, n_pages, width, lens, seed, device):
     return [torch.from_numpy(x).to(device) for x in (q, k, v, pt, ln)]
 
 
+@pytest.mark.parametrize("blocks", [None, 1, 2, 5])
 @pytest.mark.parametrize("splits", [None, 1, 3])
 @pytest.mark.parametrize("ps", [2, 4])
 @pytest.mark.parametrize("d", [8, 16])
 @pytest.mark.parametrize("gqa", [(2, 3), (1, 4), (4, 1), (2, 2)])
-def test_kernel_matches_plain_on_grid(dev, gqa, d, ps, splits):
+def test_kernel_matches_plain_on_grid(dev, gqa, d, ps, splits, blocks):
     n_kv, g = gqa
     q, k, v, pt, ln = _inputs(5, n_kv, g, d, ps, 12, 10, [0, 1, 5, 16, 31],
                               seed=d * 10 + ps, device=dev)
-    out = paged_attention(q, k, v, pt, ln, 8, splits=splits)
+    out = paged_attention(q, k, v, pt, ln, 8, splits=splits, blocks=blocks)
     torch.testing.assert_close(out, ops._plain(q, k, v, pt, ln, 8), **TOL)
     torch.testing.assert_close(
         out, batched_paged_attention(q, k, v, pt, ln, 8), **TOL)
     assert out[0].abs().max().item() == 0.0          # seq_len 0 → zeros
 
 
-@pytest.mark.parametrize("lens", [[0, 1, 7, 8], [9, 255, 256, 17]])
-def test_kernel_matches_plain_at_main_path_shape(dev, lens):
-    q, k, v, pt, ln = _inputs(4, 8, 2, 128, 8, 129, 34, lens, seed=3,
-                              device=dev)
-    out = paged_attention(q, k, v, pt, ln, 32)
+#: (seq_lens, max_pages) at the serve's widths (4 slots, 8 kv heads, g 2,
+#: d 128, pages of 8): its 32-page rows, and 256-page rows for 2,048 tokens
+MAIN_CASES = [([0, 1, 7, 8], 32), ([9, 255, 256, 17], 32),
+              ([19, 2048, 0, 700], 256)]
+
+
+def _main_inputs(lens, max_pages, seed=3):
+    # distinct pages within each row, a pool of 4 rows' worth
+    return _inputs(4, 8, 2, 128, 8, 4 * max_pages + 9, max_pages + 2, lens,
+                   seed=seed, device=torch.device("cuda", 0))
+
+
+@pytest.mark.parametrize("lens,max_pages", MAIN_CASES)
+def test_kernel_matches_plain_at_main_path_shape(dev, lens, max_pages):
+    q, k, v, pt, ln = _main_inputs(lens, max_pages)
+    out = paged_attention(q, k, v, pt, ln, max_pages)
     torch.testing.assert_close(
-        out, batched_paged_attention(q, k, v, pt, ln, 32), **TOL)
+        out, batched_paged_attention(q, k, v, pt, ln, max_pages), **TOL)
+    torch.testing.assert_close(
+        out, ops._plain(q, k, v, pt, ln, max_pages), **TOL)
+    assert not out[[i for i, n in enumerate(lens) if n == 0]].any()
+
+
+@pytest.mark.parametrize("lens,max_pages", MAIN_CASES)
+def test_kernel_is_bit_equal_twice_and_leaves_counters_at_zero(
+        dev, lens, max_pages):
+    q, k, v, pt, ln = _main_inputs(lens, max_pages, seed=4)
+    for kw in ({}, {"blocks": 3}, {"blocks": 8, "splits": 5}):
+        a = paged_attention(q, k, v, pt, ln, max_pages, **kw)
+        b = paged_attention(q, k, v, pt, ln, max_pages, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), kw
+    for _, counters in ops._scratch.values():
+        assert not counters.any()
+
+
+@pytest.mark.parametrize("lens,max_pages", MAIN_CASES)
+def test_kernel_simplest_form_agrees_with_default(dev, lens, max_pages):
+    """``blocks=1, splits=1``: one warp walks the whole sequence, no merge
+    at all; the second reference for the split and merged forms."""
+    q, k, v, pt, ln = _main_inputs(lens, max_pages, seed=5)
+    one = paged_attention(q, k, v, pt, ln, max_pages, blocks=1, splits=1)
+    for kw in ({}, {"blocks": 4}, {"blocks": 7, "splits": 16}):
+        torch.testing.assert_close(
+            paged_attention(q, k, v, pt, ln, max_pages, **kw), one, **TOL)
 
 
 def test_kernel_ignores_garbage_pages(dev):
@@ -102,6 +144,25 @@ def test_kernel_ignores_garbage_pages(dev):
     pt2[0, 2:] = torch.tensor([0, 5], dtype=torch.int32, device=dev)
     assert torch.equal(paged_attention(q, k, v, pt, ln, 4),
                        paged_attention(q, k, v, pt2, ln, 4))
+
+
+@pytest.mark.parametrize("blocks", [None, 1, 3])
+def test_kernel_never_dereferences_pages_past_seq_len(dev, blocks):
+    """Page-table entries past seq_len set to ids outside the pool (-1,
+    n_pages + 1000) neither fault nor change the output."""
+    lens, max_pages = [19, 2048, 0, 700], 256
+    q, k, v, pt, ln = _main_inputs(lens, max_pages, seed=6)
+    n_pages = k.shape[0]
+    want = paged_attention(q, k, v, pt, ln, max_pages, blocks=blocks)
+    bad = pt.clone()
+    for s, n in enumerate(lens):
+        used = -(-n // 8)
+        bad[s, used:] = torch.where(
+            torch.arange(bad.shape[1] - used, device=dev) % 2 == 0,
+            -1, n_pages + 1000).to(torch.int32)
+    got = paged_attention(q, k, v, bad, ln, max_pages, blocks=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_kernel_counts_launches_and_rejects_bad_inputs(dev):
@@ -121,7 +182,12 @@ def test_kernel_counts_launches_and_rejects_bad_inputs(dev):
     with pytest.raises(ValueError):
         paged_attention(q, k, v, pt, ln.cpu(), 8)
     with pytest.raises(ValueError):
-        paged_attention(q, k, v, pt, ln, 8, splits=9)     # 2 x 9 > 16 warps
+        paged_attention(q, k, v, pt, ln, 8, splits=17)    # > 16 warps
+    with pytest.raises(ValueError):
+        paged_attention(q, k, v, pt, ln, 8, blocks=0)
+    with pytest.raises(ValueError):                       # d % 4 != 0
+        paged_attention(q[..., :14].contiguous(), k[..., :14].contiguous(),
+                        v[..., :14].contiguous(), pt, ln, 8)
     assert paged_attention.launches == before + 1
 
 
