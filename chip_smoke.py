@@ -31,8 +31,9 @@ Phases (any failure exits non-zero and prints no result line):
               from the profiler's kernel events;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
-              1/31/256/1000/2^20 elements, signed and unsigned, int32 and
-              int64 input);
+              1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
+              and int64 input, and int32 input 4 bytes off 16-byte
+              alignment);
   6. vm     — the μProgram-VM kernel bit-exact against ``execute`` on the
               card (16 ops x n 8/16 x both styles, 2^16 elements) and the
               numpy ORACLES (16 ops at n=32 on 2^20 elements, each op's
@@ -50,7 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
   8. timing — SIMDRAM kernels, plain versions and library yardsticks at
               2^20 and 2^26 elements beside their bounds (the VM's: the
               bytes of the planes it reads and writes, or one LOP3 per
-              compiled MAJ per word);
+              compiled MAJ per word); pack and unpack also beside one
+              ``copy_`` of the bytes they move, with their tile and grid;
   9. bsmm   — the bit-serial matmul kernel (planes packed 1 bit per
               weight per plane) bit-exact against its plain version on the
               test grid, ragged and unaligned shapes, the decode batches
@@ -507,15 +509,19 @@ def phase_transpose(torch, np, tt, tbp, dev):
     reference test grid plus 2^20 elements, ragged tails included."""
     worst, cases = 0.0, 0
     for n_bits in (4, 8, 16, 32):
-        for n_elems in (1, 31, 256, 1000, FULL):
+        for n_elems in (1, 31, 256, 1000, 4133, FULL):
             x = _ints(np, n_bits, n_elems, n_bits * 1000 + n_elems)
             for signed in (True, False):
                 ref_np = tbp.pack_np(x, n_bits, signed, device="cpu")
                 ref_back = tbp.unpack_np(ref_np)
                 # unsigned, the round trip gives the low n_bits back
                 want = x if signed or n_bits == 32 else x & ((1 << n_bits) - 1)
-                for dtype in (torch.int32, torch.int64):
-                    xc = torch.from_numpy(x).to(dtype).to(dev)
+                for dtype in (torch.int32, torch.int64, "x[1:]"):
+                    if dtype == "x[1:]":     # 4 bytes off 16-byte alignment
+                        xc = torch.from_numpy(np.concatenate(
+                            [[0], x]).astype(np.int32)).to(dev)[1:]
+                    else:
+                        xc = torch.from_numpy(x).to(dtype).to(dev)
                     bp = tt.to_bitplanes(xc, n_bits, signed)
                     what = (f"pack n_bits={n_bits} n_elems={n_elems} "
                             f"signed={signed} {dtype}")
@@ -535,9 +541,10 @@ def phase_transpose(torch, np, tt, tbp, dev):
                            torch.from_numpy(want).to(dev))
                     cases += 1
     print(f"[transpose] {cases} cases (n_bits 4/8/16/32 x n_elems "
-          f"1/31/256/1000/{_p2(FULL)} x signed/unsigned x int32/int64 "
-          f"input): pack and unpack kernels == plain versions == "
-          f"pack_np/unpack_np, round trip exact")
+          f"1/31/256/1000/4133/{_p2(FULL)} x signed/unsigned x int32/int64/"
+          f"int32 4 bytes off 16-byte alignment input): pack and unpack "
+          f"kernels == plain versions == pack_np/unpack_np, round trip "
+          f"exact")
     return worst
 
 
@@ -748,6 +755,16 @@ def _kernel_ms(torch, fn):
                     warmup=2)[0]
 
 
+def _copy_ms(torch, n_bytes, dev):
+    """Device ms of one ``copy_`` between two buffers of ``n_bytes / 2``
+    each: a stream that reads and writes the bytes a transpose must move,
+    the yardstick beside pack and unpack (no PyTorch call transposes bit
+    planes)."""
+    src = torch.ones(n_bytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return _kernel_ms(torch, lambda: dst.copy_(src))
+
+
 def _bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT32_OPS_PER_S * 1e3
@@ -772,23 +789,27 @@ def phase_simdram_timing(torch, np, tt, vm, tc, tbp, dev, card):
                                 ).to(dev)
         for n_bits in (8, 32):
             bp = tt.to_bitplanes(a, n_bits)
+            # the int32 input's 4 bytes an element and the planes once
             io = 4 * size + 4 * n_bits * nw
-            for name, fn, plain in (
+            copy_ms = _copy_ms(torch, io, dev)
+            for name, fn, plain, tile in (
                     ("bitplane_pack", lambda: tt.to_bitplanes(a, n_bits),
-                     lambda: tbp.pack(a, n_bits)),
+                     lambda: tbp.pack(a, n_bits), tt.ops.PACK_TILE),
                     ("bitplane_unpack", lambda: tt.from_bitplanes(bp),
-                     lambda: tbp.unpack(bp))):
+                     lambda: tbp.unpack(bp), tt.ops.unpack_tile(n_bits))):
                 ms = _kernel_ms(torch, fn)
                 plain_ms = _kernel_ms(torch, plain) if size == FULL \
                     else None
                 bound_ms, by = _bound(io, 0)
                 row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=by, library_ms=None)
-                print(f"[timing] {card}: {name} n_bits={n_bits} {tag}: "
+                           bound_by=by, library_ms=None, copy_ms=copy_ms)
+                print(f"[timing] {card}: {name} n_bits={n_bits} {tag} "
+                      f"(tile {tile} words, {-(-nw // tile)} blocks): "
                       f"kernel {ms:.5f} ms, plain "
                       f"{'-' if plain_ms is None else f'{plain_ms:.5f}'} "
                       f"ms, bound {bound_ms:.5f} ms ({by}: {io} B), "
-                      f"library none")
+                      f"copy_ of {io // 2} B {copy_ms:.5f} ms, library "
+                      f"none")
                 if size == FULL and n_bits == 8:
                     rows[name] = row
         # div's operands are non-negative, so torch's truncating int32

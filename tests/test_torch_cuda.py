@@ -18,7 +18,11 @@ runs on a machine without JAX:
     CPU engine's;
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
     their plain versions (ragged tails, both styles, every block size, 1,
-    2 and 4 words per thread, div at 32 bits in blocks of 1,024),
+    2 and 4 words per thread, div at 32 bits in blocks of 1,024); the
+    transpose kernels at every n_bits 1..32, on either side of each tile,
+    on input 4 or 8 bytes off 16-byte alignment, on plane rows off it
+    (n_words % 4 of 1, 2, 3), on int64 with its high word set, and at
+    2^20 and 2^26 elements;
     their wrappers refuse what the kernels do not take, and a CUDA
     ``apply_op`` goes through the VM kernel and never through ``execute``;
   * the bit-serial matmul kernel, on packed planes, agrees bit for bit with
@@ -270,6 +274,107 @@ def test_transpose_kernels_match_plain(dev, n_bits, n_elems, dtype, signed):
     assert torch.equal(back.cpu(), tbp.unpack(ref))
     if n_bits == 32 and dtype == torch.int32:
         assert torch.equal(back, xc)            # round trip
+
+
+def _transpose_exact(x, n_bits, signed=True):
+    """Pack ``x`` (on the card) and unpack it again through the kernels,
+    each bit-exact against the plain version on the CPU."""
+    bp = tt.to_bitplanes(x, n_bits, signed)
+    ref = tbp.pack(x.cpu(), n_bits, signed)
+    assert torch.equal(bp.planes.cpu(), ref.planes)
+    back = tt.from_bitplanes(bp)
+    assert torch.equal(back.cpu(), tbp.unpack(ref))
+    return bp, back
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("n_bits", range(1, 33))
+def test_transpose_kernels_at_every_width(dev, n_bits, signed):
+    x = torch.from_numpy(_ints(max(n_bits, 2), 4133, n_bits)).to(dev)
+    _transpose_exact(x.to(torch.int32), n_bits, signed)
+
+
+@pytest.mark.parametrize("kernel", ["pack", "unpack"])
+@pytest.mark.parametrize("n_bits", [3, 8, 16, 32])
+def test_transpose_kernels_around_each_tile(dev, n_bits, kernel):
+    """One tile +- 1 element and +- 1 word, and 2 tiles + 1, at the pack
+    and at the unpack tile: ragged last tiles and last words."""
+    tw = tt.ops.PACK_TILE if kernel == "pack" else tt.ops.unpack_tile(n_bits)
+    t = 32 * tw
+    for n in (t - 32, t - 1, t, t + 1, t + 32, 2 * t + 1):
+        x = torch.from_numpy(_ints(n_bits, n, n)).to(dev).to(torch.int32)
+        _transpose_exact(x, n_bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_transpose_kernels_on_unaligned_input(dev, dtype):
+    """x[1:] is 4 (int32) or 8 (int64) bytes off 16-byte alignment; the
+    kernel takes it with 4-byte loads, with no copy and no refusal."""
+    base = torch.from_numpy(_ints(32, 5001, 7)).to(dtype).to(dev)
+    for off in (1, 2, 3):
+        x = base[off:]
+        assert x.data_ptr() % 16 != 0 or dtype == torch.int64
+        for n_bits in (8, 32):
+            _transpose_exact(x, n_bits)
+
+
+@pytest.mark.parametrize("rem", [1, 2, 3])
+@pytest.mark.parametrize("n_bits", [5, 8, 16, 32])
+def test_transpose_kernels_on_unaligned_plane_rows(dev, n_bits, rem):
+    """n_words % 4 != 0: plane rows 1.. start off 16-byte alignment, so
+    their chunks go by 4-byte loads and stores."""
+    nw = 4 * 37 + rem
+    for n in (32 * nw, 32 * nw - 5):
+        x = torch.from_numpy(_ints(n_bits, n, rem * n_bits)).to(dev)
+        bp, _ = _transpose_exact(x.to(torch.int32), n_bits)
+        assert bp.n_words % 4 == rem
+        # the same planes 4 bytes past a 16-byte boundary: a contiguous
+        # view into a larger buffer, as another caller may hold them
+        flat = torch.zeros(n_bits * nw + 1, dtype=torch.int32, device=dev)
+        view = flat[1:].view(n_bits, nw)
+        view.copy_(bp.planes)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        for signed in (True, False):
+            moved = tbp.BitPlaneArray(view, n, signed)
+            assert torch.equal(tt.from_bitplanes(moved).cpu(), tbp.unpack(
+                tbp.BitPlaneArray(bp.planes.cpu(), n, signed)))
+
+
+def test_transpose_kernels_cut_int64_to_its_low_word(dev):
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, 70001)).to(dev)
+    assert (x >> 32).abs().min().item() > 0         # every high word set
+    for n_bits in (1, 8, 31, 32):
+        bp, _ = _transpose_exact(x, n_bits)
+        low = _transpose_exact((x & 0xFFFFFFFF).to(torch.int64), n_bits)[0]
+        assert torch.equal(bp.planes, low.planes)
+
+
+def _plain_chunked(x, n_bits, signed, chunk=1 << 22):
+    """The plain pack and unpack of ``x`` on the card, a slice of whole
+    words at a time (the plain pack holds 8 n_bits bytes per element)."""
+    planes = torch.cat([tbp.pack(x[i:i + chunk], n_bits, signed).planes
+                        for i in range(0, x.shape[0], chunk)], dim=1)
+    back = torch.cat([tbp.unpack(tbp.BitPlaneArray(
+        planes[:, i // 32:(i + chunk) // 32],
+        min(chunk, x.shape[0] - i), signed))
+        for i in range(0, x.shape[0], chunk)])
+    return planes, back
+
+
+@pytest.mark.parametrize("n,n_bits", [(1 << 20, 8), (1 << 20, 32),
+                                      ((1 << 20) + 17, 13), (1 << 26, 8),
+                                      (1 << 26, 32)])
+def test_transpose_kernels_at_main_path_sizes(dev, n, n_bits):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n_bits)
+    x = torch.randint(-2**31, 2**31, (n,), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    for signed in (True, False):
+        bp = tt.to_bitplanes(x, n_bits, signed)
+        planes, back = _plain_chunked(x, n_bits, signed)
+        assert torch.equal(bp.planes, planes)
+        assert torch.equal(tt.from_bitplanes(bp), back)
 
 
 def _case(op, n, size, seed):
