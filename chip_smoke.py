@@ -24,11 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
               ``repro_torch.launch.serve.main``: 6 requests, 4 slots, decode
               horizon 8, attention through the kernel.  Every request's
               tokens are held against the plain model's greedy decode on
-              the card, the kernel's launch count against 28 x token steps,
-              and one decode horizon runs under
-              ``torch.cuda.set_sync_debug_mode("error")``; then one horizon
-              is timed on the host clock and its device-busy time read
-              from the profiler's kernel events;
+              the card, the kernel's launch count against (full + ring
+              layers) x token steps (28 x), and one decode horizon runs
+              under ``torch.cuda.set_sync_debug_mode("error")``; then one
+              horizon is timed on the host clock and its device-busy time
+              read from the profiler's kernel events;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -72,12 +72,34 @@ Phases (any failure exits non-zero and prints no result line):
               layers' matrices in turn (weights from device memory, as in
               the forward) beside the bound and the dp4a ceiling, with the
               split-K slices;
- 11. result — a JSON line per kernel, the card line, and the ok line last.
+ 11. hetero — the mixed stacks.  The kernel on ring-table rows at the ring
+              pool's shapes (gemma3-12b: n_kv 8, g 2, d 256, 128-page
+              rows; recurrentgemma-9b: n_kv 1, g 16, d 256, 256-page rows;
+              mixtral-8x7b: n_kv 8, g 4, d 128, 512-page rows; empty,
+              partly filled and full rings; 5 split plans, each twice and
+              bit-equal) against both plain twins, then timed with every
+              ring full.  gemma3-12b at its published config (48 layers:
+              40 ring, window 1,024, 8 full) served as in phase 4 (launches
+              48 x token steps, every request against the plain greedy
+              decode, a sync-free horizon, one horizon timed and
+              profiled); on the same weights one request of 1,016 + 16
+              tokens whose decode crosses the window (its tokens against
+              the plain decode, 128 ring frames per slot, the full
+              layers' pages reaching 129); then recurrentgemma-9b and
+              mamba2-1.3b at their published configs and mixtral-8x7b at
+              full width cut to 2 layers, each served the same way
+              against its plain greedy decode with a sync-free horizon.
+              Each model is freed before the next loads.  The phase runs
+              last, in a child process (``chip_smoke.py --hetero OUT``):
+              before phase 7 it left the profiler losing launches of the
+              brightness call;
+ 12. result — a JSON line per kernel, the card line, and the ok line last.
 
 Needs one CUDA card; exits with code 2 without one.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -300,15 +322,20 @@ def phase_kernel(torch, pa, ops, batched, dev):
 
 
 def phase_timing(torch, F, pa, ops, batched, dev, label, lens, max_pages,
-                 n_pages):
+                 n_pages, shape=(8, 2, 128, 8), table=None):
     """Time kernel, its simplest form (one block, one warp), plain twin and
-    the library yardstick at the main path's decode shape (4 slots, 8 kv
-    heads, g=2, d=128, ps=8) at these lengths; print the plan."""
-    S, n_kv, g, d, ps = len(lens), 8, 2, 128, 8
+    the library yardstick at a decode shape (``shape`` = (n_kv, g, d, ps);
+    by default the serve's: 4 slots, 8 kv heads, g=2, d=128, ps=8) at these
+    lengths; print the plan.  ``table``: page rows to read (the ring pool's
+    static table) in place of random distinct pages."""
+    S = len(lens)
+    n_kv, g, d, ps = shape
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     q, k, v, pt, ln = _pool(torch, gen, S, n_kv, g, d, ps, n_pages,
                             max_pages, lens, dev)
+    if table is not None:
+        pt = table
     n_tok = [min(int(x), max_pages * ps) for x in lens]
     ms, call_ms = _time_ms(torch, lambda: pa(q, k, v, pt, ln, max_pages))
     one_ms, _ = _time_ms(torch, lambda: pa(q, k, v, pt, ln, max_pages,
@@ -334,23 +361,31 @@ def phase_timing(torch, F, pa, ops, batched, dev, label, lens, max_pages,
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     n_sm = ops._sm_count(dev.index)
-    P = ops.split_plan(S, n_kv, max_pages, ps, n_sm)
+    cols = n_kv * ops.rows_per_block(g, d)[1]       # blocks share a kv head
+    P = ops.split_plan(S, cols, max_pages, ps, n_sm)
     warps = ops.default_warps(max_pages, ps, d, P)
     used = [ops.blocks_used(t, P, max_pages, ps, d) for t in n_tok]
     # the kernel streams K/V past L1 once its working blocks fill the SMs
-    loads = "streaming" if n_kv * sum(used) >= n_sm else "L1-allocating"
-    print(f"[kernel] seq_len {label} {lens}, device ms per call: kernel "
+    loads = "streaming" if cols * sum(used) >= n_sm else "L1-allocating"
+    print(f"[kernel] {_shape_label(shape)} seq_len {label} {lens}, device ms "
+          f"per call: kernel "
           f"{ms:.5f} (one block of one warp per (kv head, slot): "
           f"{one_ms:.5f}), plain twin {plain_ms:.5f}, gather+SDPA "
           f"{library_ms:.5f}; bound {bound_ms:.6f} ({bound_by}: {n_bytes} "
           f"B, {flops} flop); plan: P {P} blocks of {warps} warps per (kv "
-          f"head, slot), blocks with work per slot {used} ({n_kv * sum(used)} "
-          f"of {S * n_kv * P}; {loads} loads on {n_sm} SMs); host clock per "
+          f"head and row group, slot), blocks with work per slot {used} "
+          f"({cols * sum(used)} of {S * cols * P}; {loads} loads on {n_sm} "
+          f"SMs); host clock per "
           f"call incl. launch overhead: "
           f"kernel {call_ms:.5f}, plain {plain_call:.5f}, gather+SDPA "
           f"{library_call:.5f}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _shape_label(shape):
+    n_kv, g, d, ps = shape
+    return f"n_kv {n_kv} g {g} d {d} ps {ps}"
 
 
 def _reference_tokens(torch, tm, cfg, params, req, dev):
@@ -375,47 +410,56 @@ def _reference_tokens(torch, tm, cfg, params, req, dev):
     return req.max_new, None
 
 
-def phase_serve(torch, pa, card):
-    from repro_torch.launch import serve
+def phase_serve(torch, pa, card, run, tag="serve"):
+    """One serve through a user's entry point: ``run()`` returns
+    ``(finished, engine)``.  The kernel's count is set to 0 just before it
+    and read just after; it must equal (full + ring layers) x token steps.
+    Every request's tokens are held against the plain model's greedy
+    decode on the card."""
     from repro_torch.models import model as tm
 
     torch.cuda.reset_peak_memory_stats()
     pa.launches = 0
     t0 = time.perf_counter()
-    finished, engine = serve.main(SERVE_ARGV)
+    finished, engine = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.launches
     peak = torch.cuda.max_memory_allocated()
     cfg, dev = engine.cfg, engine.device
     steps = engine.stats["token_steps"]
-    n_layers = engine.geom.n_full
-    if launches != n_layers * steps or launches == 0:
-        _fail(f"kernel launches {launches} != {n_layers} layers x {steps} "
-              f"token steps")
-    print(f"[serve] kernel launches {launches} = {n_layers} layers x "
-          f"{steps} token steps (engine stats {engine.stats})")
+    n_attn = engine.geom.n_full + engine.geom.n_ring
+    if launches != n_attn * steps or (n_attn and launches == 0):
+        _fail(f"[{tag}] {cfg.name}: kernel launches {launches} != "
+              f"{n_attn} full + ring layers x {steps} token steps")
+    print(f"[{tag}] {cfg.name}: kernel launches {launches} = {n_attn} full "
+          f"+ ring layers x {steps} token steps (engine stats "
+          f"{engine.stats})")
     if len(finished) != 6 or any(len(r.out) != 16 for r in finished):
-        _fail("expected 6 finished requests of 16 tokens")
+        _fail(f"[{tag}] expected 6 finished requests of 16 tokens")
+    t1 = time.perf_counter()
     for r in sorted(finished, key=lambda r: r.rid):
         n, gap = _reference_tokens(torch, tm, cfg, engine.params, r, dev)
         tail = ("" if gap is None else
                 f"; stopped at token {n}: reference top-two gap {gap:.3e} "
                 f"< {TIE_GAP}")
-        print(f"[serve] req {r.rid}: {n}/{len(r.out)} tokens equal to the "
+        print(f"[{tag}] req {r.rid}: {n}/{len(r.out)} tokens equal to the "
               f"plain greedy reference{tail}")
     n_out = sum(len(r.out) for r in finished)
-    print(f"[serve] {card}: {len(finished)} requests, {n_out} tokens in "
-          f"{wall:.3f} s wall ({n_out / wall:.1f} tok/s, params init and "
-          f"kernel load included); max_memory_allocated "
-          f"{peak} B")
+    print(f"[{tag}] {card}: {cfg.name}: {len(finished)} requests, {n_out} "
+          f"tokens in {wall:.3f} s wall ({n_out / wall:.1f} tok/s, params "
+          f"init and kernel load included); max_memory_allocated {peak} B; "
+          f"plain reference decode {time.perf_counter() - t1:.1f} s")
     return launches, engine
 
 
 def phase_sync_free(torch, engine, card):
     """One fused horizon dispatched with every host sync turned into an
-    error: the decode path must enqueue work only."""
+    error: the decode path must enqueue work only.  Then one horizon timed
+    on the host clock and its device-busy time read from the profiler.
+    Frees the slots it took."""
     S, dev, k = engine.max_seqs, engine.device, 8
+    name = engine.cfg.name
     for s in range(S):
         blk = engine.alloc.alloc(s)
         engine.alloc.reserve_span(blk, 4, k)
@@ -433,8 +477,8 @@ def phase_sync_free(torch, engine, card):
         torch.cuda.set_sync_debug_mode("default")
     block = block.cpu()
     if block.shape != (k, S) or bool((block < 0).any()):
-        _fail(f"sync-free horizon returned {block.tolist()}")
-    print(f"[sync] decode_many(K={k}) over {S} slots under "
+        _fail(f"{name}: sync-free horizon returned {block.tolist()}")
+    print(f"[sync] {name}: decode_many(K={k}) over {S} slots under "
           f"set_sync_debug_mode('error'): no host sync; block "
           f"{tuple(block.shape)}")
     # steady-state cost of one horizon (4 more; the slots grow to 44
@@ -450,17 +494,19 @@ def phase_sync_free(torch, engine, card):
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, kernels = _kernel_busy(torch, horizon)
-    print(f"[horizon] {card}: decode_many(K={k}) over {S} slots, "
-          f"{engine.geom.n_full} layers: {call_ms:.3f} ms on the host clock "
-          f"({call_ms / k:.3f} ms per token step)")
+    geom = engine.geom
+    print(f"[horizon] {card}: {name}: decode_many(K={k}) over {S} slots, "
+          f"{len(geom.kinds)} layers ({geom.n_full} full, {geom.n_ring} "
+          f"ring, {geom.n_rg} RG-LRU, {geom.n_ssm} SSM): {call_ms:.3f} ms "
+          f"on the host clock ({call_ms / k:.3f} ms per token step)")
     if busy_ms is None:
         print("[horizon] device-busy time: not measured (the profiler saw "
               "no CUDA kernel events)")
     else:
         n_kernels = sum(c for _, c, _ in kernels)
-        top = [(name[:60], c, ms) for name, c, ms in kernels[:5]]
-        attn = [(c, ms) for name, c, ms in kernels if "paged_attn" in name]
-        print(f"[horizon] profiled call: {n_kernels} kernels "
+        top = [(kname[:60], c, ms) for kname, c, ms in kernels[:5]]
+        attn = [(c, ms) for kname, c, ms in kernels if "paged_attn" in kname]
+        print(f"[horizon] {name}: profiled call: {n_kernels} kernels "
               f"({n_kernels / k:.0f} per token step), device busy "
               f"{busy_ms:.3f} ms, so the device idles "
               f"{1 - busy_ms / call_ms:.1%} of the unprofiled call; top "
@@ -468,6 +514,262 @@ def phase_sync_free(torch, engine, card):
               f"attention (launches, ms): {attn}")
     for blk in list(engine.alloc.blocks.values()):
         engine.alloc.free(blk)
+
+
+# -- the mixed stacks: ring pool, recurrent state, MoE -----------------------
+#: the ring pool's kernel shapes at the launcher's page size of 8
+#: (configs/*.py): (label, (n_kv, g, d, ps), ring pages = window / 8)
+RING_SHAPES = [("gemma3-12b", (8, 2, 256, 8), 128),
+               ("recurrentgemma-9b", (1, 16, 256, 8), 256),
+               ("mixtral-8x7b", (8, 4, 128, 8), 512)]
+#: the full-width serves of the phase (the qwen3 serve's settings)
+HETERO_ARGV = ["--no-smoke", "--attn-impl", "kernel", "--requests", "6",
+               "--max-new", "16", "--batch-slots", "4", "--prompt-len", "4",
+               "--decode-horizon", "8", "--no-prefix-cache", "--device",
+               "cuda"]
+#: the ring-wrap request: 1,016 prompt + 16 new tokens cross gemma3-12b's
+#: window of 1,024 during decode
+WRAP_PROMPT, WRAP_NEW = 1016, 16
+
+
+def phase_ring_kernel(torch, F, pa, ops, batched, dev):
+    """The kernel on ring-table rows (static, contiguous: slot s reads
+    pages 1 + s * ring_pages ..) at the ring pool's three shapes, lengths
+    0, 1, a partly filled ring and a full ring, planned and forced splits,
+    each launch twice and bit-equal, against both plain twins; then timed
+    at 4 slots with every ring full."""
+    from repro_torch.core.vbi.kvcache import make_ring_table
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    worst, rows = 0.0, {}
+    for label, shape, rp in RING_SHAPES:
+        n_kv, g, d, ps = shape
+        W, S = rp * ps, 4
+        n_pages = 1 + S * rp
+        table = torch.from_numpy(make_ring_table(S, rp)).to(dev)
+        lens = [0, 1, W // 2 + 3, W]
+        q, k, v, _, ln = _pool(torch, gen, S, n_kv, g, d, ps, n_pages, rp,
+                               lens, dev)
+        refs = (("ref_paged_attention", ops._plain(q, k, v, table, ln, rp)),
+                ("batched_paged_attention", batched(q, k, v, table, ln, rp)))
+        for splits, blocks in ((None, None), (1, 1), (None, 3), (5, 8),
+                               (16, None)):
+            got = pa(q, k, v, table, ln, rp, splits=splits, blocks=blocks)
+            again = pa(q, k, v, table, ln, rp, splits=splits, blocks=blocks)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                _fail(f"ring {label}: two calls (splits={splits}, blocks="
+                      f"{blocks}) differ")
+            for name, ref in refs:
+                err = (got - ref).abs().max().item()
+                if (not torch.allclose(got, ref, atol=ATOL, rtol=RTOL)
+                        or not torch.isfinite(got).all()):
+                    _fail(f"ring {label} {_shape_label(shape)}, {rp}-page "
+                          f"rows, seq_lens {lens} (splits={splits}, blocks="
+                          f"{blocks}) vs {name}: max abs err {err:.3e}")
+                worst = max(worst, err)
+            if got[0].abs().max().item() != 0.0:
+                _fail(f"ring {label}: seq_len 0 must give zeros")
+        print(f"[hetero] ring kernel {label}: {_shape_label(shape)}, "
+              f"{rp}-page rows (window {W}), seq_lens {lens}, 5 split "
+              f"plans, each twice and bit-equal; == both plain twins "
+              f"within atol={ATOL} rtol={RTOL}")
+        rows[label] = phase_timing(torch, F, pa, ops, batched, dev,
+                                   f"ring full ({label})", [W] * S, rp,
+                                   n_pages, shape=shape, table=table)
+        rows[label].update(shape=shape, ring_pages=rp)
+        del q, k, v, table, refs
+    print(f"[hetero] ring kernel: max abs err {worst:.3e}")
+    return worst, rows
+
+
+def phase_ring_wrap(torch, pa, card, cfg, params):
+    """One request of 1,016 prompt + 16 new tokens through PagedEngine +
+    Scheduler on a pool sized for it: its decode crosses the 1,024-token
+    window.  Tokens against the plain greedy decode; the ring keeps its
+    128 frames per slot while the full layers' pages grow to 129."""
+    import numpy as np
+
+    from repro_torch.models import model as tm
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.serve.scheduler import Scheduler
+
+    dev, ps = params["embed"].device, 8
+    lifetime = WRAP_PROMPT + WRAP_NEW
+    pages = -(-lifetime // ps) + 1
+    eng = PagedEngine(cfg, params, n_pages=1 + pages, page_size=ps,
+                      max_seqs=1, max_pages_per_seq=pages, device=dev)
+    sched = Scheduler(eng, prefill_chunk=64, decode_horizon=8)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab, WRAP_PROMPT).tolist()
+    sched.add_request(prompt, max_new=WRAP_NEW)
+    seen = []
+    decode_many = eng.decode_many
+
+    def probed(*args):
+        # after each horizon: the pool pages in use (one device read)
+        block = decode_many(*args)
+        seen.append(eng.pages_in_use)
+        return block
+
+    eng.decode_many = probed
+    pa.launches = 0
+    t0 = time.perf_counter()
+    finished = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = pa.launches, eng.stats["token_steps"]
+    geom = eng.geom
+    n_attn = geom.n_full + geom.n_ring
+    if launches != n_attn * steps:
+        _fail(f"ring wrap: launches {launches} != {n_attn} x {steps}")
+    want_pages = -(-(lifetime - 1) // ps)      # the last token is not fed
+    if max(seen) != want_pages:
+        _fail(f"ring wrap: full layers' pages peaked at {max(seen)}, "
+              f"want {want_pages}")
+    if not WRAP_PROMPT < geom.window < lifetime - 1:
+        _fail(f"ring wrap: the decode does not cross the window "
+              f"{geom.window}")
+    if (geom.ring_pages != geom.window // ps
+            or eng.state.k_ring.shape[1] != 1 + geom.ring_pages):
+        _fail(f"ring wrap: ring of {geom.ring_pages} frames, pool "
+              f"{tuple(eng.state.k_ring.shape)}")
+    (req,) = finished
+    t1 = time.perf_counter()
+    n, gap = _reference_tokens(torch, tm, cfg, params, req, dev)
+    tail = ("" if gap is None else f" (stopped at a tie, gap {gap:.3e})")
+    print(f"[hetero] {card}: ring wrap {cfg.name}: {WRAP_PROMPT} prompt + "
+          f"{WRAP_NEW} new tokens (positions {WRAP_PROMPT}..{lifetime - 2} "
+          f"decoded across the window of {geom.window}), {steps} token "
+          f"steps in {wall:.3f} s wall ({wall / steps * 1e3:.2f} ms per "
+          f"step); kernel launches {launches} = {n_attn} x {steps}; full "
+          f"layers' pages per horizon {seen}; ring {geom.ring_pages} frames "
+          f"per slot, k_ring {tuple(eng.state.k_ring.shape)}; {n}/"
+          f"{len(req.out)} tokens equal to the plain greedy reference{tail} "
+          f"({time.perf_counter() - t1:.1f} s)")
+    return launches
+
+
+def _free(torch):
+    """Give a dropped model's device memory back before the next loads: an
+    engine and its allocator refer to each other, so only the cycle
+    collector frees them."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+#: phase 11's child process: its time limit, and where it leaves its
+#: result for the parent (inside the checkout's ignored build directory)
+HETERO_TIMEOUT_S = 900
+HETERO_RESULT = Path(__file__).resolve().parent / "build" / "hetero.json"
+
+
+def run_hetero():
+    """Phase 11 in a process of its own, after every other phase: run
+    before phase 7, in this process or in a child, it left the profiler
+    of this process losing launches of the brightness call (the first 6
+    of its 8 in one run, all of them in the next two), while the same
+    phases without it, a fresh process and one idle for 200 s saw all 8.
+    In a child, its tens of gigabytes and millions of launches end with
+    the child.  The child's lines go to the same output; it is waited
+    for, and killed at its time limit.  Returns (max abs err at the ring
+    shapes, ring timing rows, kernel launches by path)."""
+    HETERO_RESULT.parent.mkdir(exist_ok=True)
+    HETERO_RESULT.unlink(missing_ok=True)
+    sys.stdout.flush()
+    try:
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                             "--hetero", str(HETERO_RESULT)],
+                            timeout=HETERO_TIMEOUT_S).returncode
+    except subprocess.TimeoutExpired:
+        _fail(f"[hetero] did not end within {HETERO_TIMEOUT_S} s")
+    if rc != 0:
+        _fail(f"[hetero] exited with code {rc}")
+    res = json.loads(HETERO_RESULT.read_text())
+    return res["ring_err"], res["ring_rows"], res["launches"]
+
+
+def hetero_main(out: str) -> int:
+    """The child of :func:`run_hetero` (``chip_smoke.py --hetero OUT``):
+    phase 11 on the card, its result as JSON in ``OUT``."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.serve.engine import batched_paged_attention
+
+    dev, card = _setup_card(torch)
+    ring_err, ring_rows, launches = phase_hetero(
+        torch, F, ops.paged_attention, ops, batched_paged_attention, dev,
+        card)
+    Path(out).write_text(json.dumps({"ring_err": ring_err,
+                                     "ring_rows": ring_rows,
+                                     "launches": launches}))
+    return 0
+
+
+def _setup_card(torch):
+    """The card this script runs on, with TF32 off for matmuls and cuDNN so
+    float32 stays float32: (device, nvidia-smi's name and power limit)."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev, smi[0].strip()
+
+
+def phase_hetero(torch, F, pa, ops, batched, dev, card):
+    """The mixed stacks on the card: the kernel at the ring shapes;
+    gemma3-12b at its published config served, sync-free and timed; the
+    ring wrapping on a 1,032-token request; recurrentgemma-9b and
+    mamba2-1.3b at their published configs and mixtral-8x7b at full width
+    cut to 2 layers, each against its plain greedy decode."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as tm
+
+    t0 = time.perf_counter()
+    ring_err, ring_rows = phase_ring_kernel(torch, F, pa, ops, batched, dev)
+    print(f"[hetero] ring kernel part: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+
+    for arch in ("gemma3-12b", "recurrentgemma-9b", "mamba2-1.3b",
+                 "mixtral-8x7b"):
+        t0 = time.perf_counter()
+        if arch == "mixtral-8x7b":
+            # full width; 2 of 32 layers (46.7 G params in float32 do not
+            # fit one card); the launcher has no depth flag
+            cfg = dataclasses.replace(serve.serve_config(arch, smoke=False),
+                                      n_layers=2)
+            params = tm.init_params(cfg, seed=0, device=dev)
+            launches[arch], engine = phase_serve(
+                torch, pa, card,
+                lambda: serve.serve(cfg, params, device=dev), "hetero")
+            del params
+        else:
+            launches[arch], engine = phase_serve(
+                torch, pa, card,
+                lambda: serve.main(HETERO_ARGV + ["--arch", arch]), "hetero")
+        phase_sync_free(torch, engine, card)
+        if arch == "gemma3-12b":
+            cfg, params = engine.cfg, engine.params
+            del engine
+            _free(torch)
+            launches["ring wrap"] = phase_ring_wrap(torch, pa, card, cfg,
+                                                    params)
+            del params
+        else:
+            del engine
+        _free(torch)
+        print(f"[hetero] {arch}: {time.perf_counter() - t0:.1f} s")
+    return ring_err, ring_rows, launches
 
 
 # -- SIMDRAM: transposition unit, μProgram VM, the brightness pipeline -------
@@ -1080,17 +1382,11 @@ def main() -> int:
     from repro_torch.kernels.bitserial_matmul import ref as bs_ref
     from repro_torch.kernels.paged_attention import build_kernel, ops
     from repro_torch.kernels.simdram_vm import ops as vm
+    from repro_torch.launch import serve
     from repro_torch.serve.engine import batched_paged_attention
 
     pa = ops.paged_attention
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    card = smi[0].strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    dev, card = _setup_card(torch)
     print(f"[card] {card} | torch.cuda.get_device_name(0) = "
           f"{torch.cuda.get_device_name(0)} | torch {torch.__version__} "
           f"CUDA {torch.version.cuda} | TF32 off for matmul and cuDNN")
@@ -1104,16 +1400,21 @@ def main() -> int:
         print(f"[build] {lib}; nvcc -Xptxas -v:\n{log.strip()}")
     print(f"[build] 4 libraries in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     max_err = phase_kernel(torch, pa, ops, batched_paged_attention, dev)
     timings = {label: phase_timing(torch, F, pa, ops,
                                    batched_paged_attention, dev, label, *rest)
                for label, *rest in PA_TIMED}
     timing = timings["19"]
+    print(f"[kernel] phase took {time.perf_counter() - t0:.1f} s")
 
-    launches, engine = phase_serve(torch, pa, card)
+    t0 = time.perf_counter()
+    launches, engine = phase_serve(torch, pa, card,
+                                   lambda: serve.main(SERVE_ARGV))
     phase_sync_free(torch, engine, card)
     del engine
     torch.cuda.empty_cache()
+    print(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     errs = {"bitplane_pack": phase_transpose(torch, np, tt, tbp, dev)}
@@ -1131,6 +1432,11 @@ def main() -> int:
                                                   card, dp4a_rate)
     print(f"[qlm] phases took {time.perf_counter() - t0:.1f} s")
 
+    _free(torch)
+    t0 = time.perf_counter()
+    ring_err, ring_rows, hetero_launches = run_hetero()
+    print(f"[hetero] phase took {time.perf_counter() - t0:.1f} s")
+
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     simdram = [
         ("bitplane_pack", csrc.format("bitplane_transpose",
@@ -1141,11 +1447,19 @@ def main() -> int:
          "src/repro/kernels/bitplane_transpose/kernel.py:31"),
         ("simdram_vm", csrc.format("simdram_vm", "simdram_vm"),
          "src/repro/kernels/simdram_vm/kernel.py:26")]
+    # launches: the qwen3 serve's and each mixed-stack path's, each read
+    # with the count set to 0 just before it; times at the serve's shape
+    # (seq_len 19), the ring shapes beside them
+    by_path = {"qwen3-0.6b": launches, **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": csrc.format("paged_attention", "paged_attention"),
         "replaces": "src/repro/kernels/paged_attention/kernel.py:27",
-        "launches": launches, "max_abs_err": max_err, **timing}] + [{
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(max_err, ring_err), **timing,
+        "ring_shapes": {label: {k: row[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for label, row in ring_rows.items()}}] + [{
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": simdram_launches[name],
             "max_abs_err": errs[name], "bit_exact": errs[name] == 0.0,
@@ -1164,4 +1478,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--hetero":
+        sys.exit(hetero_main(sys.argv[2]))
     sys.exit(main())

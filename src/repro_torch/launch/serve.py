@@ -4,13 +4,19 @@
         --arch qwen3-0.6b --requests 6 --max-new 16              # smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --no-prefix-cache \\
         --no-smoke --arch qwen3-0.6b                             # full width
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-prefix-cache \\
+        --arch gemma3-12b --device cpu             # local/global, on the CPU
 
 Counterpart of ``repro/launch/serve.py``, default (closed-loop) path only:
 ``serve/engine.py`` driven by ``serve/scheduler.py`` — admission, chunked
 prefill, the fused decode horizon, eviction and preemption — with page
-lifecycle through ``core/vbi/blocks.py::VBIAllocator``.  Weights are
-random, drawn from ``--seed``.  ``--device`` defaults to ``cuda`` and
-raises when there is no card.
+lifecycle through ``core/vbi/blocks.py::VBIAllocator``.  Every
+decoder-only arch is served: uniform, local/global and sliding-window
+attention, RG-LRU and Mamba-2 recurrent layers, top-k MoE; the launcher
+prints the stack's geometry (full, ring, RG-LRU and SSM layers, the
+window and its ring pages).  Weights are random, drawn from ``--seed``.
+``--device`` defaults to ``cuda`` and raises when there is no card;
+``--device cpu`` serves the smoke configs on the CPU.
 
 The prefix cache is not ported yet (ROADMAP.md § A7): the launcher
 refuses to run without ``--no-prefix-cache``, so that a run never silently
@@ -85,21 +91,40 @@ def main(argv=None):
                  "pass --no-prefix-cache")
     cfg = serve_config(args.arch, args.smoke)
     params = init_params(cfg, seed=args.seed, device=args.device)
-    rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab, args.prompt_len).tolist()
-               for _ in range(args.requests)]
+    return serve(cfg, params, requests=args.requests, max_new=args.max_new,
+                 batch_slots=args.batch_slots,
+                 prefill_chunk=args.prefill_chunk,
+                 prompt_len=args.prompt_len,
+                 decode_horizon=args.decode_horizon,
+                 attn_impl=args.attn_impl, seed=args.seed,
+                 device=args.device)
+
+
+def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
+          batch_slots: int = 4, prefill_chunk: int = 8, prompt_len: int = 4,
+          decode_horizon: int = 8, attn_impl: str = "kernel", seed: int = 0,
+          device="cuda"):
+    """The launcher's serve on given params (on ``device``): ``requests``
+    prompts of ``prompt_len`` tokens drawn from ``seed``, each decoding
+    ``max_new`` tokens, through the engine (pages of 8 tokens, 32 pages a
+    slot) and the scheduler.  Returns ``(finished_requests, engine)``."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, prompt_len).tolist()
+               for _ in range(requests)]
     page_size = 8
     engine = PagedEngine(
-        cfg, params, page_size=page_size, max_seqs=args.batch_slots,
-        n_pages=1 + args.batch_slots * 32, attn_impl=args.attn_impl,
-        device=args.device)
-    print(f"[serve] {cfg.name}: {engine.geom.n_full} full-attention layers "
-          f"on {engine.device} — attn_impl={args.attn_impl}")
-    sched = Scheduler(engine, prefill_chunk=args.prefill_chunk,
-                      decode_horizon=args.decode_horizon)
+        cfg, params, page_size=page_size, max_seqs=batch_slots,
+        n_pages=1 + batch_slots * 32, attn_impl=attn_impl, device=device)
+    geom = engine.geom
+    print(f"[serve] {cfg.name} on {engine.device} — attn_impl={attn_impl}; "
+          f"geometry: n_full {geom.n_full}, n_ring {geom.n_ring}, n_rg "
+          f"{geom.n_rg}, n_ssm {geom.n_ssm}, window {geom.window}, ring "
+          f"pages {geom.ring_pages} of {page_size} tokens")
+    sched = Scheduler(engine, prefill_chunk=prefill_chunk,
+                      decode_horizon=decode_horizon)
     t0 = time.perf_counter()
     for p in prompts:
-        sched.add_request(p, max_new=args.max_new)
+        sched.add_request(p, max_new=max_new)
     finished = sched.run()
     dt = time.perf_counter() - t0
     for req in finished:

@@ -1,11 +1,12 @@
 """Shared model layers: norms, RoPE, direct and chunked (flash-style)
-attention, and the dense MLPs.
+attention, the dense MLPs and the sort-based top-k MoE.
 
 Counterpart of ``repro/models/layers.py``.  All attention flows through
 :func:`attention`, which dispatches between a direct path (small S) and a
 memory-bounded chunked online-softmax path, so activation memory stays
-O(S·chunk) instead of O(S²).  The sort-based MoE layer is not part of this
-slice (ROADMAP.md § A5).
+O(S·chunk) instead of O(S²).  The MoE runs the reference's local grouped
+path; its expert-parallel mesh path waits for the port's mesh (ROADMAP.md
+§ A14).
 """
 from __future__ import annotations
 
@@ -179,3 +180,74 @@ def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(f"unknown activation {act!r}")
     return qmm(h, params["w2"])
+
+
+def _moe_groups(T: int, want: int = 32) -> int:
+    g = min(want, T)
+    while T % g:
+        g -= 1
+    return max(g, 1)
+
+
+def moe(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Top-k capacity MoE on x [B, S, d] (the local grouped path)."""
+    B, S, d = x.shape
+    return _moe_local(params, x.reshape(B * S, d), cfg).reshape(B, S, d)
+
+
+def _moe_local(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Grouped sort-based top-k MoE with per-group capacity.
+
+    x: [T, d] → [T, d].  Tokens are split into G groups; within a group
+    the (token, choice) pairs are sorted by expert (stably, so the pairs
+    past an expert's capacity ``cap`` are the same ones the reference
+    drops) and dispatched into a [G, E, cap, d] buffer; the expert FFNs
+    are batched einsums.  Capacity and groups are host ints from shapes.
+    Each token's K expert outputs are summed in a fixed order (choice 0
+    first), so two runs give the same bits on any device."""
+    T, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    G = _moe_groups(T, cfg.moe_groups)
+    Tg = T // G
+    cap = int(max(1, round(Tg * K / E * cfg.capacity_factor)))
+    dev = x.device
+    xg = x.reshape(G, Tg, d)
+    logits = torch.einsum("gtd,de->gte", xg.float(),
+                          params["router"].float())
+    probs = torch.softmax(logits, -1)
+    topw, topi = torch.topk(probs, K, dim=-1, sorted=True)   # [G, Tg, K]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    eflat = topi.reshape(G, Tg * K)
+    order = torch.argsort(eflat, dim=1, stable=True)         # per group
+    e_sorted = torch.gather(eflat, 1, order)
+    seg_start = torch.searchsorted(
+        e_sorted, torch.arange(E, device=dev).expand(G, E).contiguous())
+    pos_in_e = (torch.arange(Tg * K, device=dev)[None]
+                - torch.gather(seg_start, 1, e_sorted))
+    keep = pos_in_e < cap
+    tok = torch.div(order, K, rounding_mode="floor")          # [G, Tg*K]
+    slot = torch.where(keep, pos_in_e, cap - 1)
+    gidx = torch.arange(G, device=dev)[:, None]
+    vals = torch.where(keep[..., None],
+                       torch.gather(xg, 1, tok[..., None].expand(-1, -1, d)),
+                       0.0).to(x.dtype)
+    # dropped pairs add zeros into their expert's last row: exact in any
+    # order, so the scatter needs no fixed order
+    flat = ((gidx * E + e_sorted) * cap + slot).reshape(-1)
+    buf = torch.zeros((G * E * cap, d), dtype=x.dtype, device=dev)
+    buf.index_add_(0, flat, vals.reshape(-1, d))
+    buf = buf.reshape(G, E, cap, d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w1"])) \
+        * torch.einsum("gecd,edf->gecf", buf, params["w3"])
+    out_e = torch.einsum("gecf,efd->gecd", h, params["w2"])
+    gathered = out_e[gidx, e_sorted, slot]                    # [G, Tg*K, d]
+    w = (torch.gather(topw.reshape(G, Tg * K), 1, order)
+         * keep).to(x.dtype)
+    # back to (token, choice) order, then a fixed-order sum over choices
+    contrib = torch.empty_like(gathered).scatter_(
+        1, order[..., None].expand(-1, -1, d), gathered * w[..., None])
+    contrib = contrib.reshape(G, Tg, K, d)
+    yg = contrib[:, :, 0]
+    for k in range(1, K):
+        yg = yg + contrib[:, :, k]
+    return yg.reshape(T, d)

@@ -1,4 +1,4 @@
-"""Stage-structured decoder for the attention stacks of this slice.
+"""Stage-structured decoder for the decoder-only stacks.
 
 Counterpart of ``repro/models/model.py``.  Params are a plain nested dict
 with the reference's tree layout: ``embed``, ``final_norm``, optional
@@ -12,11 +12,12 @@ Entry points (plain functions of ``(cfg, params, ...)``):
   * ``prefill``       — forward over a prompt + emit the KV caches;
   * ``decode_step``   — one token with caches.
 
-Every projection goes through ``quantized.qmm``, so the three also run a
-``quantize_serving_params`` tree.  Only attention layers (``attn``, and
-windowed ``local``/SWA ones) with dense MLPs are ported; recurrent, SSM,
-MoE, vision and encoder-decoder stacks, ``lm_loss`` and gradients are
-queued in ROADMAP.md.
+Every attention and MLP projection goes through ``quantized.qmm``, so the
+three also run a ``quantize_serving_params`` tree.  Every layer kind is
+ported: attention (``attn``, and windowed ``local``/SWA ones), RG-LRU
+(``rglru.py``) and Mamba-2 (``ssm.py``) mixers, dense and top-k MoE
+channel mixers.  Vision and encoder-decoder inputs, ``lm_loss`` and
+gradients are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -27,8 +28,10 @@ import torch
 
 from ..device import resolve_device
 from .config import LayerSpec, ModelConfig
-from .layers import attention, mlp, rms_norm, rope
+from .layers import attention, mlp, moe, rms_norm, rope
 from .quantized import qmm
+from .rglru import init_rglru_params, rglru_decode_step, rglru_forward
+from .ssm import init_mamba_params, mamba_decode_step, mamba_forward, ssm_dims
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -50,15 +53,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder stacks are not ported yet "
-            f"(ROADMAP.md § A)")
-    for st in cfg.stages():
-        for spec in st.period:
-            if spec.kind not in ("attn", "local") or spec.moe:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer kind {spec.kind!r}"
-                    f"{' (MoE)' if spec.moe else ''} is not ported yet; "
-                    f"recurrent, SSM and MoE stacks are queued in "
-                    f"ROADMAP.md § A5")
+            f"(ROADMAP.md § A5b)")
 
 
 # --------------------------------------------------------------------------
@@ -78,6 +73,9 @@ class _Init:
 
     def zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def full(self, shape, value: float, dtype) -> torch.Tensor:
+        return torch.full(shape, value, dtype=dtype, device=self.device)
 
 
 def _init_attn(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
@@ -108,6 +106,38 @@ def _init_mlp(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
     return p
 
 
+def _init_moe(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
+    d, E, ff = cfg.d_model, cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
+    return {
+        "router": ini.normal((n, d, E), d ** -0.5, torch.float32),
+        "w1": ini.normal((n, E, d, ff), d ** -0.5, dtype),
+        "w3": ini.normal((n, E, d, ff), d ** -0.5, dtype),
+        "w2": ini.normal((n, E, ff, d), ff ** -0.5, dtype),
+    }
+
+
+def _init_layer(spec: LayerSpec, cfg: ModelConfig, ini: _Init, n: int,
+                dtype) -> Dict:
+    """One period entry's leaves, stacked over its ``n`` layers: the
+    reference's tree (mamba layers have no ``ln2`` and no channel mixer;
+    MoE layers carry ``moe`` in place of ``mlp``)."""
+    d = cfg.d_model
+    p: Dict[str, Any] = {"ln1": ini.zeros((n, d), torch.float32)}
+    if spec.kind in ("attn", "local"):
+        p["attn"] = _init_attn(cfg, ini, n, dtype)
+    elif spec.kind == "mamba":
+        p["mamba"] = init_mamba_params(cfg, ini, n, dtype)
+    else:                                           # rglru
+        p["rglru"] = init_rglru_params(cfg, ini, n, dtype)
+    if spec.kind != "mamba":
+        p["ln2"] = ini.zeros((n, d), torch.float32)
+        if spec.moe:
+            p["moe"] = _init_moe(cfg, ini, n, dtype)
+        else:
+            p["mlp"] = _init_mlp(cfg, ini, n, dtype)
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> Dict:
     """Random params with the reference's shapes, scales and tree layout,
@@ -128,16 +158,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "stages": [],
     }
     for st in cfg.stages():
-        entries = []
-        for _ in st.period:
-            n = st.count
-            entries.append({
-                "ln1": ini.zeros((n, d), torch.float32),
-                "attn": _init_attn(cfg, ini, n, dtype),
-                "ln2": ini.zeros((n, d), torch.float32),
-                "mlp": _init_mlp(cfg, ini, n, dtype),
-            })
-        params["stages"].append(entries)
+        params["stages"].append([_init_layer(spec, cfg, ini, st.count, dtype)
+                                 for spec in st.period])
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.normal((d, cfg.vocab), d ** -0.5, dtype)
     return params
@@ -167,24 +189,41 @@ def _cache_len(spec: LayerSpec, cfg: ModelConfig, max_len: int) -> int:
     return min(w, max_len) if w else max_len
 
 
+def _layer_cache_shapes(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                        max_len: int, dtype) -> Dict:
+    """name → (shape, dtype) of one layer's cache, per kind: ``{"k", "v"}``
+    for attention, ``{"state", "conv"}`` for mamba, ``{"h", "conv"}`` for
+    rglru (recurrent state in float32)."""
+    if spec.kind in ("attn", "local"):
+        S = _cache_len(spec, cfg, max_len)
+        shape = (batch, cfg.n_kv, S, cfg.head_dim)
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+    if spec.kind == "mamba":
+        d_inner, H, P = ssm_dims(cfg)
+        conv_ch = d_inner + 2 * cfg.ssm_state
+        return {"state": ((batch, H, P, cfg.ssm_state), torch.float32),
+                "conv": ((batch, 3, conv_ch), dtype)}
+    w = cfg.rnn_width or cfg.d_model                # rglru
+    return {"h": ((batch, w), torch.float32),
+            "conv": ((batch, cfg.conv_width - 1, w), dtype)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> List:
-    """Per stage, per period entry: ``{"k", "v"}`` of
-    ``[count, batch, n_kv, S_cache, head_dim]`` zeros."""
+    """Per stage, per period entry: the layer kind's cache leaves as
+    ``[count, batch, ...]`` zeros (``k``/``v`` of ``[count, batch, n_kv,
+    S_cache, head_dim]`` for attention)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = (_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype
              else _cdt(cfg))
     out = []
     for st in cfg.stages():
-        stage_c = []
-        for spec in st.period:
-            S = _cache_len(spec, cfg, max_len)
-            shape = (st.count, batch, cfg.n_kv, S, cfg.head_dim)
-            stage_c.append({
-                "k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)})
-        out.append(stage_c)
+        out.append([
+            {name: torch.zeros((st.count,) + shape, dtype=dt, device=dev)
+             for name, (shape, dt) in _layer_cache_shapes(
+                 spec, cfg, batch, max_len, dtype).items()}
+            for spec in st.period])
     return out
 
 
@@ -271,24 +310,45 @@ def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
                 mode: str, cache: Optional[Dict] = None,
                 pos: Optional[int] = None):
     """mode: 'train' | 'prefill' | 'decode' ('train' is prefill without
-    the K/V cache).  Returns (x, new_cache)."""
-    if spec.kind not in ("attn", "local") or spec.moe:
-        raise NotImplementedError(
-            f"layer kind {spec.kind!r} is not ported yet (ROADMAP.md § A5)")
+    the caches).  Returns (x, new_cache): the layer's cache leaves as
+    computed (attention decode returns the cache tensors it updated in
+    place; the recurrent kinds return new state tensors)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     new_cache: Dict[str, Any] = {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "decode":
-        o, kv = _self_attn_decode(spec, cfg, p["attn"], h, cache, pos)
-        new_cache.update(kv)
-    elif mode in ("train", "prefill"):
-        o = _self_attn_full(spec, cfg, p["attn"], h)
-        if mode == "prefill":
-            new_cache.update(_prefill_kv(spec, cfg, p["attn"], h, cache))
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
+    if spec.kind in ("attn", "local"):
+        if mode == "decode":
+            o, kv = _self_attn_decode(spec, cfg, p["attn"], h, cache, pos)
+            new_cache.update(kv)
+        else:
+            o = _self_attn_full(spec, cfg, p["attn"], h)
+            if mode == "prefill":
+                new_cache.update(_prefill_kv(spec, cfg, p["attn"], h,
+                                             cache))
+    elif spec.kind == "mamba":
+        if mode == "decode":
+            o, st, cv = mamba_decode_step(p["mamba"], h, cache["state"],
+                                          cache["conv"], cfg)
+        else:
+            o, st, cv = mamba_forward(p["mamba"], h, cfg)
+        if mode != "train":
+            new_cache.update({"state": st, "conv": cv})
+    else:                                           # rglru
+        if mode == "decode":
+            o, hh, cv = rglru_decode_step(p["rglru"], h, cache["h"],
+                                          cache["conv"], cfg)
+        else:
+            o, hh, cv = rglru_forward(p["rglru"], h, cfg)
+        if mode != "train":
+            new_cache.update({"h": hh, "conv": cv})
     x = x + o
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp(p["mlp"], h2, cfg.act)
+    if spec.kind != "mamba":
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if spec.moe:
+            x = x + moe(p["moe"], h2, cfg)
+        else:
+            x = x + mlp(p["mlp"], h2, cfg.act)
     return x.to(_cdt(cfg)), new_cache
 
 
@@ -307,8 +367,8 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                stage_list=None):
     """Run every stage's period ``count`` times (a Python loop where the
     reference scans).  ``caches`` is updated in place — prefill writes each
-    layer's recomputed K/V into it, decode writes the new token — and
-    returned: (x, caches).  Mode 'train' takes no caches."""
+    layer's recomputed K/V and recurrent state into it, decode the new
+    token's — and returned: (x, caches).  Mode 'train' takes no caches."""
     stage_list = stage_list or cfg.stages()
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
         for j in range(stage.count):
@@ -317,8 +377,8 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                       else _layer_params(caches[si][i], j))
                 x, nc = apply_layer(spec, cfg, _layer_params(sp[i], j), x,
                                     mode=mode, cache=cc, pos=pos)
-                if mode == "prefill":
-                    for name, t in nc.items():
+                for name, t in nc.items():
+                    if t is not cc[name]:
                         cc[name].copy_(t)
     return x, caches
 
@@ -348,7 +408,7 @@ def forward_train(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
     if cfg.n_vis_tokens:
         raise NotImplementedError(
             f"{cfg.name}: vision embeddings are not ported yet "
-            f"(ROADMAP.md § A)")
+            f"(ROADMAP.md § A5b)")
     x = _embed_tokens(cfg, params, batch["tokens"])
     x, _ = run_stages(cfg, params["stages"], x, mode="train")
     return _logits(cfg, params, x)

@@ -16,14 +16,28 @@ block of a decode horizon once, after dispatch.  In particular
 ``max_pages`` reaches the attention kernel as the Python int
 ``self.max_pages``, never as a value read from ``seq_lens``.
 
+Heterogeneous layer stacks: the engine partitions the stack into
+property-typed groups and gives each its own cache state —
+
+  * **full** attention layers keep the unbounded paged pool + page table;
+  * **ring** layers (sliding-window 'local'/SWA) have bounded liveness:
+    only the last ``window`` tokens are ever read, so each slot gets a
+    static ring of ``window / page_size`` pages, translation ``pos mod
+    window`` through a ring table that never changes;
+  * **recurrent** layers (RG-LRU / Mamba-2) have constant size: a fixed
+    per-slot state, updated in place on the slots that run.
+
+So gemma3's 5-local:1-global pattern, mixtral's all-SWA MoE stack,
+recurrentgemma's R,R,A hybrid and mamba2's attention-free stack serve
+through the same token step as a uniform stack.
+
 ``attn_impl="kernel"`` (the default) sends attention through
 ``kernels/paged_attention``: the hand-written Hopper kernel for CUDA
 tensors, its plain twin for CPU tensors.  ``attn_impl="gather"`` is the
 plain batched twin (:func:`batched_paged_attention`); a CUDA engine
 refuses it, because on the card the main path goes through the kernel.
-
-This slice serves uniform full-attention stacks; ring, recurrent and MoE
-stacks are queued in ROADMAP.md § A5.
+Both take (page row, valid length), so the ring pool rides the same two
+paths with its static rows and ``min(seq_len, window)``.
 """
 from __future__ import annotations
 
@@ -38,13 +52,16 @@ from ..core.vbi.address_space import VBProps
 from ..core.vbi.blocks import VBIAllocator
 from ..core.vbi.kvcache import (PagedServeState, aux_swap_charge,
                                 fused_decode_scan, init_serve_state,
-                                reserve_positions, write_token_kv)
+                                make_ring_table, reserve_positions,
+                                write_token_kv)
 from ..core.vbi.mtl import MTL
 from ..device import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..models.config import LayerSpec, ModelConfig
-from ..models.layers import mlp, rms_norm
+from ..models.layers import mlp, moe, rms_norm
 from ..models.model import _layer_params, _logits
+from ..models.rglru import rglru_decode_step
+from ..models.ssm import mamba_decode_step, ssm_dims
 from .paged import _qkv_ragged
 
 
@@ -99,39 +116,57 @@ class StackGeom:
 
 
 def _entry_kind(spec: LayerSpec) -> str:
+    # cfg.stages() stamps the effective window onto every spec (uniform
+    # SWA included), so spec.window alone decides: a cfg.window fallback
+    # would misclassify the global layers of a local/global stack
     if spec.kind in ("attn", "local"):
         return "ring" if spec.window else "full"
     return spec.kind                                 # 'rglru' | 'mamba'
 
 
 def build_stack_geom(cfg: ModelConfig, page_size: int) -> StackGeom:
-    """Classify ``cfg``'s layer stack and lay out per-stage plans.  Raises
-    ``ValueError`` for encoder-decoder models and ``NotImplementedError``
-    for the stacks this slice does not serve yet."""
+    """Classify ``cfg``'s layer stack into property-typed groups and lay
+    out per-stage plans.  Raises ``ValueError`` for shapes the engine
+    cannot express (encoder-decoder; ring windows that differ or that
+    ``page_size`` does not divide)."""
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name}: encoder-decoder models are not "
                          f"servable through PagedEngine")
-    n_full = 0
+    counts = {"full": 0, "ring": 0, "rglru": 0, "mamba": 0}
+    windows = set()
     plans = []
     for st in cfg.stages():
         kinds = tuple(_entry_kind(sp) for sp in st.period)
-        for sp, kind in zip(st.period, kinds):
-            if kind != "full" or sp.moe:
-                what = "MoE" if sp.moe else kind
-                raise NotImplementedError(
-                    f"{cfg.name}: {what} layers are not ported yet — this "
-                    f"slice serves uniform full-attention stacks; ring, "
-                    f"recurrent and MoE stacks are queued in ROADMAP.md "
-                    f"§ A5")
-        per = len(st.period)
-        idx = tuple(tuple(n_full + per * j + r for j in range(st.count))
-                    for r in range(per))
-        n_full += per * st.count
-        plans.append(StagePlan(st.count, kinds, tuple(st.period), idx))
+        per_kind = {k: kinds.count(k) for k in set(kinds)}
+        rank = {k: 0 for k in per_kind}
+        idx = []
+        for sp, k in zip(st.period, kinds):
+            idx.append(tuple(counts[k] + per_kind[k] * j + rank[k]
+                             for j in range(st.count)))
+            rank[k] += 1
+            if k == "ring":
+                windows.add(sp.window)
+        for k, n in per_kind.items():
+            counts[k] += n * st.count
+        plans.append(StagePlan(st.count, kinds, tuple(st.period),
+                               tuple(idx)))
+    window = 0
+    if windows:
+        if len(windows) != 1:
+            raise ValueError(f"{cfg.name}: ring layers must share one "
+                             f"window, got {sorted(windows)}")
+        window = windows.pop()
+        if window % page_size:
+            raise ValueError(
+                f"{cfg.name}: sliding window {window} must be a multiple "
+                f"of page_size {page_size} so ring translation stays "
+                f"page-exact — pick a page_size dividing the window")
     return StackGeom(
         kinds=tuple(k for p in plans for _ in range(p.count)
                     for k in p.kinds),
-        n_full=n_full, n_ring=0, n_rg=0, n_ssm=0, window=0, ring_pages=0,
+        n_full=counts["full"], n_ring=counts["ring"], n_rg=counts["rglru"],
+        n_ssm=counts["mamba"], window=window,
+        ring_pages=window // page_size if window else 0,
         stage_plans=tuple(plans))
 
 
@@ -147,7 +182,8 @@ def batched_paged_attention(q: torch.Tensor, k_pages_l: torch.Tensor,
 
     q [S, n_kv, g, hd] (pre-scaled f32); k/v_pages_l [n_pages, ps, n_kv,
     hd]; page_table [S, max_pages_per_seq]; seq_lens [S] → [S, n_kv, g,
-    hd]."""
+    hd].  The ring pool uses the same contract with its static page rows
+    and ``seq_lens`` clipped to the window."""
     pts = page_table[:, :max_pages].long()                # [S, P]
     S, P = pts.shape
     ps = k_pages_l.shape[1]
@@ -175,45 +211,92 @@ def _kernel_paged_attention(q, k_pages_l, v_pages_l, page_table, seq_lens,
 # the token step (shared by decode and chunked prefill)
 # --------------------------------------------------------------------------
 def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
-                attn_impl: str, params, state: PagedServeState,
-                tokens: torch.Tensor, slot_mask: torch.Tensor
+                attn_impl: str, ring_table: torch.Tensor, params,
+                state: PagedServeState, tokens: torch.Tensor,
+                slot_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, PagedServeState]:
-    """One token for every masked slot through the stack: reserve → per
-    layer (KV scatter into the page pool, paged attention, MLP) → logits.
-    Updates ``state`` in place; reads nothing back to the host."""
+    """One token for every masked slot through the heterogeneous stack:
+    reserve → per layer by its kind (paged or ring KV scatter + paged
+    attention, or a recurrent update on the masked slots; then the MLP or
+    MoE) → logits.  Updates ``state`` in place; reads nothing back to the
+    host."""
     state, positions = reserve_positions(state, slot_mask,
                                          has_full=geom.has_full)
     x = params["embed"][tokens].float()[:, None, :]              # [S,1,d]
     attn_fn = (_kernel_paged_attention if attn_impl == "kernel"
                else batched_paged_attention)
     S = tokens.shape[0]
-    g = cfg.n_heads // cfg.n_kv
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if geom.n_full or geom.n_ring:
+        g = cfg.n_heads // cfg.n_kv
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+    if geom.n_ring:
+        # seq_lens already counts this token: the window is the last
+        # ``window`` tokens including it
+        ring_pos = positions % geom.window
+        ring_lens = torch.clamp(state.seq_lens, max=geom.window)
     for plan, sp in zip(geom.stage_plans, params["stages"]):
         for j in range(plan.count):
-            for i in range(len(plan.kinds)):
+            for i, kind in enumerate(plan.kinds):
                 lp = _layer_params(sp[i], j)
                 li = plan.entry_indices[i][j]
                 h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-                q, k, v = _qkv_ragged(cfg, lp["attn"], h, positions)
-                qg = (q[:, :, 0].float() * scale).reshape(
-                    S, cfg.n_kv, g, cfg.head_dim).contiguous()
-                write_token_kv(state.k_pages, state.v_pages, li,
-                               state.page_table, positions, slot_mask,
-                               k[:, :, 0], v[:, :, 0])
-                o = attn_fn(qg, state.k_pages[li], state.v_pages[li],
-                            state.page_table, state.seq_lens, max_pages)
-                x = x + o.reshape(S, 1, -1).to(x.dtype) @ lp["attn"]["wo"]
-                h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-                x = x + mlp(lp["mlp"], h2, cfg.act)
+                if kind in ("full", "ring"):
+                    q, k, v = _qkv_ragged(cfg, lp["attn"], h, positions)
+                    qg = (q[:, :, 0].float() * scale).reshape(
+                        S, cfg.n_kv, g, cfg.head_dim).contiguous()
+                    if kind == "full":
+                        write_token_kv(state.k_pages, state.v_pages, li,
+                                       state.page_table, positions,
+                                       slot_mask, k[:, :, 0], v[:, :, 0])
+                        o = attn_fn(qg, state.k_pages[li],
+                                    state.v_pages[li], state.page_table,
+                                    state.seq_lens, max_pages)
+                    else:
+                        # bounded liveness: translation pos mod window
+                        # into the slot's static ring row, frames reused
+                        write_token_kv(state.k_ring, state.v_ring, li,
+                                       ring_table, ring_pos, slot_mask,
+                                       k[:, :, 0], v[:, :, 0])
+                        o = attn_fn(qg, state.k_ring[li], state.v_ring[li],
+                                    ring_table, ring_lens, geom.ring_pages)
+                    x = x + (o.reshape(S, 1, -1).to(x.dtype)
+                             @ lp["attn"]["wo"])
+                elif kind == "rglru":
+                    o, hh, cv = rglru_decode_step(
+                        lp["rglru"], h, state.rg_h[li], state.rg_conv[li],
+                        cfg)
+                    _update_rows(state.rg_h[li], hh, slot_mask)
+                    _update_rows(state.rg_conv[li], cv, slot_mask)
+                    x = x + o
+                else:                                        # mamba
+                    o, st, cv = mamba_decode_step(
+                        lp["mamba"], h, state.ssm_state[li],
+                        state.ssm_conv[li], cfg)
+                    _update_rows(state.ssm_state[li], st, slot_mask)
+                    _update_rows(state.ssm_conv[li], cv, slot_mask)
+                    x = x + o
+                if kind != "mamba":                      # channel mixer
+                    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+                    x = x + (moe(lp["moe"], h2, cfg) if plan.specs[i].moe
+                             else mlp(lp["mlp"], h2, cfg.act))
     return _logits(cfg, params, x), state
+
+
+def _update_rows(dst: torch.Tensor, new: torch.Tensor,
+                 slot_mask: torch.Tensor) -> None:
+    """``dst[s] = new[s]`` for the masked slots, in place, without a host
+    read (a select over all slots, not a boolean-mask index)."""
+    mask = slot_mask.reshape((-1,) + (1,) * (dst.dim() - 1))
+    dst.copy_(torch.where(mask, new.to(dst.dtype), dst))
 
 
 # --------------------------------------------------------------------------
 # the engine
 # --------------------------------------------------------------------------
 class PagedEngine:
-    """Continuous-batching serve engine over the device page pool.
+    """Continuous-batching serve engine over property-typed cache blocks:
+    any decoder-only stack ``cfg.stages()`` can express (uniform, local/
+    global, all-SWA MoE, RG-LRU hybrid, pure SSM).
 
     The engine is compute only: all page lifecycle goes through
     ``self.alloc`` (:class:`~repro_torch.core.vbi.blocks.VBIAllocator`);
@@ -254,18 +337,32 @@ class PagedEngine:
         # (a prefill chunk of C columns runs C of them)
         self.stats = {"decode_steps": 0, "decode_dispatches": 0,
                       "prefill_chunks": 0, "token_steps": 0}
+        rnn_w = (cfg.rnn_width or cfg.d_model) if geom.n_rg else 0
+        ssm_H = ssm_P = ssm_conv_ch = 0
+        if geom.n_ssm:
+            d_inner, ssm_H, ssm_P = ssm_dims(cfg)
+            ssm_conv_ch = d_inner + 2 * cfg.ssm_state
         self.state = init_serve_state(
             n_layers=geom.n_full, n_pages=n_pages, page_size=page_size,
             n_kv=cfg.n_kv, head_dim=cfg.head_dim, max_seqs=max_seqs,
             max_pages_per_seq=self.max_pages, dtype=torch.float32,
+            n_ring_layers=geom.n_ring, ring_pages=geom.ring_pages,
+            n_rg=geom.n_rg, rnn_width=rnn_w, conv_width=cfg.conv_width,
+            n_ssm=geom.n_ssm, ssm_heads=ssm_H, ssm_proj=ssm_P,
+            ssm_state_size=cfg.ssm_state, ssm_conv_ch=ssm_conv_ch,
             device=dev)
+        # a slot's ring frames are static (kvcache.py::make_ring_table):
+        # translation is arithmetic; page 0 stays null for masked lanes.
+        # Contiguous int32 on the device, once (the kernel reads its rows)
+        self.ring_table = torch.from_numpy(
+            make_ring_table(max_seqs, geom.ring_pages)).to(dev).contiguous()
         # placement is a data property of every block carved from this pool
         self.placement = (f"{dev.type}:{dev.index or 0}",)
         # the engine satisfies the allocator's pool protocol (.state + geom)
         self.alloc = VBIAllocator(self, host_swap_pages=host_swap_pages,
                                   mtl=mtl)
         self._step = partial(_token_step, cfg, geom, self.max_pages,
-                             attn_impl)
+                             attn_impl, self.ring_table)
 
     # -- the property-typed pool protocol (read by allocator + scheduler) ---
     @property

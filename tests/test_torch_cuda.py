@@ -15,7 +15,14 @@ runs on a machine without JAX:
     refuses the plain twin;
   * the engine's decode horizon enqueues work only: no host sync under
     ``torch.cuda.set_sync_debug_mode("error")``, and its logits match the
-    CPU engine's;
+    CPU engine's, for qwen3 and for the mixed stacks (gemma3, recurrentgemma,
+    mamba2, mixtral smoke);
+  * the kernel on ring-table rows at the ring pool's shapes (d 256 with g
+    2 and g 16, d 128 with g 4; 128- to 512-page rows; empty, partly
+    filled and full rings) agrees with both plain twins;
+  * the mixed stacks' smoke configs served on the card give the plain
+    model's greedy decode, with (full + ring layers) x token steps kernel
+    launches;
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
     their plain versions (ragged tails, both styles, every block size, 1,
     2 and 4 words per thread, div at 32 bits in blocks of 1,024); the
@@ -46,12 +53,14 @@ from repro_torch.kernels import bitplane_transpose as tt
 from repro_torch.kernels.bitserial_matmul import ops as bs
 from repro_torch.kernels.bitserial_matmul import ref as bs_ref
 from repro_torch.kernels.paged_attention import ops, paged_attention
+from repro_torch.core.vbi.kvcache import make_ring_table
 from repro_torch.kernels.simdram_vm import ops as vm
 from repro_torch.launch.serve import serve_config
 from repro_torch.models import model as tm
 from repro_torch.models.model import init_params
 from repro_torch.models.quantized import qmm, quantize_serving_params
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
+from repro_torch.serve.scheduler import Scheduler
 
 from _torch_simdram_cases import alias_program, hand_program
 
@@ -204,7 +213,13 @@ def test_cuda_engine_refuses_the_plain_twin(dev):
 
 
 def test_decode_horizon_is_sync_free_and_matches_cpu(dev):
-    cfg = serve_config("qwen3-0.6b")
+    _horizon_sync_free_and_as_cpu(serve_config("qwen3-0.6b"), dev)
+
+
+def _horizon_sync_free_and_as_cpu(cfg, dev):
+    """A fused horizon on the card under set_sync_debug_mode("error"),
+    its tokens and a following step's logits against the CPU engine on
+    the same params."""
     params = init_params(cfg, seed=0, device=dev)
     cpu_params = _to(params, torch.device("cpu"))
     engines = {
@@ -246,6 +261,83 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# -- the mixed stacks: ring pool, recurrent state, MoE -----------------------
+#: the ring pool's kernel shapes at page size 8 (configs/*.py): (n_kv, g,
+#: d, ring pages) of gemma3-12b (window 1,024), recurrentgemma-9b (2,048)
+#: and mixtral-8x7b (4,096)
+RING_SHAPES = [(8, 2, 256, 128), (1, 16, 256, 256), (8, 4, 128, 512)]
+MIXED = ["gemma3-12b", "recurrentgemma-9b", "mamba2-1.3b", "mixtral-8x7b"]
+
+
+@pytest.mark.parametrize("kw", [{}, {"blocks": 1, "splits": 1},
+                                {"blocks": 3}, {"blocks": 8, "splits": 5},
+                                {"splits": 16}])
+@pytest.mark.parametrize("shape", RING_SHAPES)
+def test_kernel_on_ring_rows_matches_plain(dev, shape, kw):
+    """Ring-table rows (static, contiguous) at lengths 0, 1, a partly
+    filled ring and a full ring (seq_len = window); two calls bit-equal."""
+    n_kv, g, d, rp = shape
+    ps, S = 8, 4
+    W = rp * ps
+    rng = np.random.default_rng(rp + d)
+    q = (rng.standard_normal((S, n_kv, g, d)) / np.sqrt(d)).astype(np.float32)
+    k, v = (rng.standard_normal((1 + S * rp, ps, n_kv, d)).astype(np.float32)
+            for _ in range(2))
+    q, k, v = (torch.from_numpy(x).to(dev) for x in (q, k, v))
+    table = torch.from_numpy(make_ring_table(S, rp)).to(dev)
+    ln = torch.tensor([0, 1, W // 2 + 3, W], dtype=torch.int32, device=dev)
+    out = paged_attention(q, k, v, table, ln, rp, **kw)
+    again = paged_attention(q, k, v, table, ln, rp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ops._plain(q, k, v, table, ln, rp), **TOL)
+    torch.testing.assert_close(
+        out, batched_paged_attention(q, k, v, table, ln, rp), **TOL)
+    assert not out[0].any()
+
+
+def _plain_greedy_agrees(cfg, params, req, dev, tie_gap=1e-4):
+    """The request's tokens against the plain model's greedy decode on the
+    card, up to the first near tie (top-two gap under ``tie_gap``)."""
+    toks = torch.tensor([req.prompt], dtype=torch.long, device=dev)
+    logits, caches = tm.prefill(cfg, params, {"tokens": toks},
+                                len(req.prompt) + req.max_new)
+    for i, t in enumerate(req.out):
+        top2 = torch.topk(logits[0, 0], 2)
+        if (top2.values[0] - top2.values[1]).item() < tie_gap:
+            return
+        assert int(top2.indices[0]) == t, f"token {i}"
+        logits, caches = tm.decode_step(
+            cfg, params, caches, torch.tensor([[t]], device=dev),
+            len(req.prompt) + i)
+
+
+@pytest.mark.parametrize("arch", MIXED)
+def test_mixed_stack_serves_on_card_as_plain_greedy(dev, arch):
+    cfg = serve_config(arch)
+    params = init_params(cfg, seed=0, device=dev)
+    eng = PagedEngine(cfg, params, n_pages=33, page_size=8, max_seqs=2,
+                      max_pages_per_seq=8, device=dev)
+    sched = Scheduler(eng, prefill_chunk=4, decode_horizon=8)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        sched.add_request(rng.integers(0, cfg.vocab, 5).tolist(), max_new=20)
+    before = paged_attention.launches
+    fin = sched.run()
+    geom = eng.geom
+    assert (paged_attention.launches - before
+            == (geom.n_full + geom.n_ring) * eng.stats["token_steps"])
+    assert eng.free_pages == eng.alloc.free_pages == 32
+    for req in fin:
+        assert len(req.out) == 20
+        _plain_greedy_agrees(cfg, params, req, dev)
+
+
+@pytest.mark.parametrize("arch", MIXED)
+def test_mixed_stack_horizon_is_sync_free_and_matches_cpu(dev, arch):
+    _horizon_sync_free_and_as_cpu(serve_config(arch), dev)
 
 
 # -- SIMDRAM: transposition unit and μProgram VM -----------------------------
