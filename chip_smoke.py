@@ -19,7 +19,11 @@ Phases (any failure exits non-zero and prints no result line):
               past seq_len never dereferenced.  Then time kernel, its
               simplest form, plain twin and a library yardstick with CUDA
               events beside the byte bound at seq_len 19, 256, 2,048 and
-              mixed [19, 256, 2048, 0], with the split plan;
+              mixed [19, 256, 2048, 0], with the split plan.  Also on
+              page tables whose rows share pages as the prefix cache
+              leaves them (two rows on the same pages, one on a COW copy
+              of the last) at seq_len 19 and 256: bit-equal to the same
+              launch on private copies of each row's pages;
   4. serve  — full-width qwen3-0.6b (random weights from a seed) through
               ``repro_torch.launch.serve.main``: 6 requests, 4 slots, decode
               horizon 8, attention through the kernel.  Every request's
@@ -29,6 +33,23 @@ Phases (any failure exits non-zero and prints no result line):
               under ``torch.cuda.set_sync_debug_mode("error")``; then one
               horizon is timed on the host clock and its device-busy time
               read from the profiler's kernel events;
+ 4c. prefix — the same serve with a 252-token system prompt in front of
+              every prompt (``--shared-prefix 252``: 31 full pages and 4
+              tokens), three times on the same weights: cache off, cache
+              on, cache on with ``--overlap``.  Every request against the
+              plain greedy decode of its 256-token prompt, launches 28 x
+              token steps, the three serves' tokens identical, cache-on
+              token steps below cache-off, hits >= 1 with 252 tokens
+              reused and one COW clone per hit, the host page mirror
+              exact and the pool drained to 0; then a horizon over two
+              slots mapping the same cached pages and one on a COW clone,
+              and the overlap's staged half (cache eviction, admission
+              with a hit, prefill staging) while a horizon's event is
+              pending, both under ``set_sync_debug_mode("error")``; then
+              the host ms of 16 decode ticks per mode, overlap off and
+              on in turns, and one tick's device-busy ms per mode.  It runs after phase 10: run before phase
+              7, its profiled ticks left the profiler losing the
+              brightness call's launches;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -321,6 +342,76 @@ def phase_kernel(torch, pa, ops, batched, dev):
     return worst
 
 
+def phase_kernel_shared(torch, pa, ops, batched, dev):
+    """The kernel on page tables whose rows share physical pages, as the
+    prefix cache leaves them: rows 0 and 1 name the same pages, row 2 the
+    same pages but a COW copy of the last (its tail past the matched 4
+    tokens the row's own K/V), row 3 pages of its own.  At the serve's
+    shape, seq_len 19 and 256, planned and forced splits: each launch
+    twice and bit-equal, bit-equal to the same launch on a table of
+    private copies of each row's pages, and within tolerance of both plain
+    twins."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    n_kv, g, d, ps, max_pages = 8, 2, 128, 8, 32
+    worst, n_checked = 0.0, 0
+    for seq_len in (19, 256):
+        n_used = -(-seq_len // ps)
+        n_pages = 2 + 2 * n_used
+        q, k, v, _, ln = _pool(torch, gen, 4, n_kv, g, d, ps, n_pages,
+                               max_pages, [seq_len] * 4, dev)
+        q[1] = q[0]
+        perm = torch.randperm(n_pages - 2, generator=gen, device=dev) + 1
+        base, own = perm[:n_used], perm[n_used:2 * n_used]
+        cow = n_pages - 1
+        k[cow, :4], v[cow, :4] = k[base[-1], :4], v[base[-1], :4]
+        pt = torch.zeros((4, max_pages), dtype=torch.int32, device=dev)
+        pt[:3, :n_used] = base.to(torch.int32)
+        pt[2, n_used - 1] = cow
+        pt[3, :n_used] = own.to(torch.int32)
+        # private copies: row r, column c at page 1 + r * n_used + c
+        ppt = torch.zeros_like(pt)
+        ppt[:, :n_used] = (1 + torch.arange(4 * n_used, device=dev)
+                           .view(4, n_used)).to(torch.int32)
+        src = pt[:, :n_used].reshape(-1).long()
+        pk = torch.zeros((1 + 4 * n_used,) + tuple(k.shape[1:]),
+                         device=dev)
+        pv = torch.zeros_like(pk)
+        pk[1:], pv[1:] = k[src], v[src]
+        refs = (("ref_paged_attention", ops._plain(q, k, v, pt, ln,
+                                                   max_pages)),
+                ("batched_paged_attention", batched(q, k, v, pt, ln,
+                                                    max_pages)))
+        for splits, blocks in ((None, None), (1, 1), (None, 2), (3, 5)):
+            got = pa(q, k, v, pt, ln, max_pages, splits=splits,
+                     blocks=blocks)
+            again = pa(q, k, v, pt, ln, max_pages, splits=splits,
+                       blocks=blocks)
+            priv = pa(q, pk, pv, ppt, ln, max_pages, splits=splits,
+                      blocks=blocks)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and torch.equal(got, priv)
+                    and torch.equal(got[0], got[1])):
+                _fail(f"shared page table, seq_len {seq_len} (splits="
+                      f"{splits}, blocks={blocks}): two calls, the private "
+                      f"copies or the two rows sharing pages differ")
+            for name, ref in refs:
+                err = (got - ref).abs().max().item()
+                if (not torch.allclose(got, ref, atol=ATOL, rtol=RTOL)
+                        or not torch.isfinite(got).all()):
+                    _fail(f"shared page table, seq_len {seq_len} (splits="
+                          f"{splits}, blocks={blocks}) vs {name}: max abs "
+                          f"err {err:.3e}")
+                worst = max(worst, err)
+            n_checked += 1
+    print(f"[kernel] shared page tables (2 rows on the same pages, 1 on a "
+          f"COW copy, 1 private), seq_len 19 and 256, {n_checked} plans: "
+          f"each launch twice and bit-equal, bit-equal to a table of "
+          f"private copies; == plain twins within atol={ATOL} rtol={RTOL}; "
+          f"max abs err {worst:.3e}")
+    return worst
+
+
 def phase_timing(torch, F, pa, ops, batched, dev, label, lens, max_pages,
                  n_pages, shape=(8, 2, 128, 8), table=None):
     """Time kernel, its simplest form (one block, one warp), plain twin and
@@ -412,7 +503,7 @@ def _reference_tokens(torch, tm, cfg, params, req, dev):
 
 def phase_serve(torch, pa, card, run, tag="serve"):
     """One serve through a user's entry point: ``run()`` returns
-    ``(finished, engine)``.  The kernel's count is set to 0 just before it
+    ``(finished, engine, ...)``.  The kernel's count is set to 0 just before it
     and read just after; it must equal (full + ring layers) x token steps.
     Every request's tokens are held against the plain model's greedy
     decode on the card."""
@@ -421,7 +512,7 @@ def phase_serve(torch, pa, card, run, tag="serve"):
     torch.cuda.reset_peak_memory_stats()
     pa.launches = 0
     t0 = time.perf_counter()
-    finished, engine = run()
+    finished, engine = run()[:2]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.launches
@@ -514,6 +605,244 @@ def phase_sync_free(torch, engine, card):
               f"attention (launches, ms): {attn}")
     for blk in list(engine.alloc.blocks.values()):
         engine.alloc.free(blk)
+
+
+# -- prefix sharing: the prefix cache, shared and COW pages, overlap --------
+#: phase 4c: the qwen3 serve's settings with a 252-token system prompt in
+#: front of every prompt (31 full pages of 8 and 4 tokens: each 256-token
+#: prompt fills 32 pages, its last holding 4 system tokens and 4 of its
+#: own, so a later hit maps 31 pages read-only and COW-clones the 32nd)
+SHARED_PREFIX = 252
+PREFIX_ARGV = [a for a in SERVE_ARGV if a != "--no-prefix-cache"] + [
+    "--shared-prefix", str(SHARED_PREFIX)]
+PREFIX_MODES = (("cache off", ["--no-prefix-cache"]), ("cache on", []),
+                ("cache on + overlap", ["--overlap"]))
+
+
+def phase_prefix(torch, pa, card):
+    """Phase 4c: full-width qwen3-0.6b served three times on the same
+    weights (seed 0) with a shared 252-token system prompt — cache off,
+    cache on, cache on with overlap — each request against the plain
+    greedy decode of its whole prompt, launches 28 x token steps, the three
+    serves' tokens identical, the cache's hits, reuse and COW clones as the
+    schedule makes them, the host mirror exact and the pool drained; then
+    a horizon over shared and COW pages and the overlap's staged half
+    under ``set_sync_debug_mode("error")``; then one decode tick timed,
+    overlap off against on.  Returns kernel launches by serve."""
+    from repro_torch.launch import serve
+
+    launches, outs, steps = {}, {}, {}
+    for mode, extra in PREFIX_MODES:
+        box = {}
+
+        def run():
+            box["out"] = serve.main(PREFIX_ARGV + extra)
+            return box["out"]
+        t0 = time.perf_counter()
+        launches[mode], engine = phase_serve(torch, pa, card, run,
+                                             f"prefix {mode}")
+        finished, sched = box["out"][0], box["out"][2]
+        alloc, cache = engine.alloc, sched.prefix_cache
+        outs[mode] = {r.rid: r.out for r in finished}
+        steps[mode] = engine.stats["token_steps"]
+        st = sched.stats
+        if engine.free_pages != alloc.free_pages:
+            _fail(f"[prefix] {mode}: device free pages {engine.free_pages} "
+                  f"!= host mirror {alloc.free_pages}")
+        if cache is not None:
+            hits = st["prefix_hits"]
+            if (hits < 1 or st["prefix_tokens_reused"] != SHARED_PREFIX * hits
+                    or alloc.stats["cow_clones"] != hits):
+                _fail(f"[prefix] {mode}: hits {hits}, tokens reused "
+                      f"{st['prefix_tokens_reused']}, COW clones "
+                      f"{alloc.stats['cow_clones']}; want hits >= 1, "
+                      f"{SHARED_PREFIX} tokens and one clone per hit")
+            print(f"[prefix] {mode}: hit rate {cache.hit_rate:.3f}, cache "
+                  f"stats {cache.stats}; sched stats {dict(st)}; allocator "
+                  f"stats {alloc.stats}; cached pages {cache.n_pages}")
+            alloc.release(cache.evict(cache.n_pages))
+        if alloc.pages_in_use != 0:
+            _fail(f"[prefix] {mode}: {alloc.pages_in_use} pages in use "
+                  f"after the drain")
+        if "overlap" in mode and st["overlap_staged_ticks"] <= 0:
+            _fail(f"[prefix] {mode}: no tick was staged under a horizon")
+        print(f"[prefix] {mode}: {steps[mode]} token steps, "
+              f"{st['steps']} ticks, overlap-staged ticks "
+              f"{st['overlap_staged_ticks']}, sync reads ready/wait "
+              f"{st['sync_device_ready']}/{st['sync_device_wait']}; pool "
+              f"drained to 0 pages, mirror exact ({time.perf_counter() - t0:.1f} s)")
+        if mode != PREFIX_MODES[-1][0]:
+            del engine, finished, sched, alloc, cache, box
+            _free(torch)
+    if not outs["cache off"] == outs["cache on"] == outs[
+            "cache on + overlap"]:
+        _fail("[prefix] the three serves' tokens differ")
+    if not steps["cache on"] < steps["cache off"]:
+        _fail(f"[prefix] cache-on token steps {steps['cache on']} not below "
+              f"cache-off {steps['cache off']}")
+    print(f"[prefix] the three serves' tokens identical per request; token "
+          f"steps cache off {steps['cache off']}, on {steps['cache on']}, "
+          f"on + overlap {steps['cache on + overlap']}")
+    _prefix_sync_free(torch, engine)
+    _overlap_tick(torch, engine, card)
+    return launches
+
+
+def _prefix_sync_free(torch, engine):
+    """On the card, with every host sync an error: (1) one decode horizon
+    over slots 1 and 2 mapping the same cached pages and slot 3 holding a
+    COW clone; (2) the overlap's staged half — ``_evict_cache``, then
+    ``_admit`` with a cache hit (``map_shared`` + ``cow_break``) and
+    ``_prefill_stage`` — while a decode horizon is in flight."""
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.scheduler import Scheduler
+
+    alloc, dev, k = engine.alloc, engine.device, 8
+    S = engine.max_seqs
+    prompt = torch.arange(1, 21, dtype=torch.int32, device=dev)   # 20
+    toks = torch.zeros((S, 20), dtype=torch.int32, device=dev)
+    toks[0] = prompt
+    n = torch.tensor([20, 0, 0, 0], dtype=torch.int32, device=dev)
+    blocks = [alloc.alloc(0)]
+    alloc.reserve_span(blocks[0], 20, k)
+    engine.prefill_chunk(toks, n)
+    pages = alloc.page_row(blocks[0], 2)
+    alloc.retain(pages, from_block=blocks[0])          # cache custody
+    for s in (1, 2):
+        blocks.append(alloc.alloc(s))
+        alloc.reserve_span(blocks[s], 16, k)
+        alloc.map_shared(blocks[s], pages, 16)
+    blocks.append(alloc.alloc(3))
+    alloc.reserve_span(blocks[3], 12, k + 1)
+    alloc.map_shared(blocks[3], pages[:1], 8)
+    alloc.cow_break(blocks[3], 1, pages[1], 12)
+    tok = torch.full((S,), 7, dtype=torch.int32, device=dev)
+    mask = torch.ones((S,), dtype=torch.bool, device=dev)
+    steps = torch.full((S,), k, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        block = engine.decode_many(tok, mask, steps, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    block = block.cpu()
+    if block.shape != (k, S) or bool((block < 0).any()) or \
+            not torch.equal(block[:, 1], block[:, 2]):
+        _fail(f"[prefix] horizon over shared pages returned {block.tolist()}")
+    for blk in blocks:
+        alloc.free(blk)
+    alloc.release(pages)
+    if alloc.pages_in_use != 0 or engine.free_pages != alloc.free_pages:
+        _fail("[prefix] shared-page horizon left pages behind")
+    print(f"[sync] prefix: decode_many(K={k}) over 2 slots mapping the same "
+          f"2 cached pages, 1 on a COW clone and 1 on its own pages under "
+          f"set_sync_debug_mode('error'): no host sync; the two sharing "
+          f"slots emitted the same tokens; pages back to 0")
+
+    # (2) the staged half of an overlap tick, a horizon in flight.  A spin
+    # kernel queued right behind the horizon, before the event its
+    # dispatch records, keeps that event pending while the staged half
+    # runs (the host enqueues a horizon slower than the card runs it)
+    sched = Scheduler(engine, prefill_chunk=8, decode_horizon=k,
+                      overlap=True, prefix_cache=PrefixCache(8))
+    rng = torch.Generator().manual_seed(4)
+    system = torch.randint(0, engine.cfg.vocab, (20,), generator=rng).tolist()
+    sched.add_request(torch.randint(0, engine.cfg.vocab, (16,),
+                                    generator=rng).tolist(), max_new=2)
+    sched.run()                          # its 2 pages stay cached, unpinned
+    sched.add_request(system + [5, 6], max_new=40)
+    while not sched.prefix_cache.n_pages > 2 or sched._pending is None:
+        sched.step()                     # system prompt cached, decoding
+    decode_many = engine.decode_many
+
+    def spun(*args):
+        block = decode_many(*args)
+        torch.cuda._sleep(int(400e6))    # about 0.2 s at 2 GHz
+        return block
+    engine.decode_many = spun
+    sched.step()                         # a horizon behind the spin
+    engine.decode_many = decode_many
+    sched.add_request(system[:12] + [9, 9, 9], max_new=4)
+    reconcile = sched._decode_reconcile
+
+    def reconcile_after_staging():
+        torch.cuda.set_sync_debug_mode("default")
+        in_flight.append(not sched._pending[1].query())
+        return reconcile()
+    sched._decode_reconcile = reconcile_after_staging
+    in_flight = []
+    before = (sched.stats["prefix_hits"], engine.alloc.stats["cow_clones"])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        evicted = sched._evict_cache(2)
+        sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sched._decode_reconcile = reconcile
+    after = (sched.stats["prefix_hits"], engine.alloc.stats["cow_clones"])
+    if evicted != 2 or after != (before[0] + 1, before[1] + 1) or \
+            in_flight != [True]:
+        _fail(f"[prefix] staged half: evicted {evicted} (want 2), hits and "
+              f"COW clones {before} -> {after} (want +1 each), horizon in "
+              f"flight at the deferred read {in_flight}")
+    done = sched.run()
+    cache = sched.prefix_cache
+    alloc.release(cache.evict(cache.n_pages))
+    if alloc.pages_in_use != 0 or engine.free_pages != alloc.free_pages or \
+            sorted(len(r.out) for r in done) != [2, 4, 40]:
+        _fail("[prefix] the staged-half run did not drain cleanly")
+    print(f"[sync] prefix: the overlap's staged half (_evict_cache of 2 "
+          f"cold pages, _admit with a hit mapping 1 page and COW-cloning "
+          f"the 2nd, _prefill_stage) under set_sync_debug_mode('error') "
+          f"while the horizon's event was pending: no host sync")
+
+
+def _overlap_tick(torch, engine, card):
+    """Steady decode ticks (4 slots, K 8), overlap off against on, in
+    turns (off, on, on, off, twice): each tick's host ms (the host clock
+    around one ``step()``; 4 ticks a run, a synchronize before and after
+    them), the median per mode over its 16 ticks, and the device-busy ms
+    of one profiled tick in the first run of each mode."""
+    import statistics
+
+    from repro_torch.serve.scheduler import Scheduler
+
+    ticks = {False: [], True: []}
+    for i, overlap in enumerate((False, True, True, False) * 2):
+        sched = Scheduler(engine, prefill_chunk=8, decode_horizon=8,
+                          overlap=overlap)
+        for r in range(4):
+            sched.add_request([1 + r, 2, 3, 4], max_new=96)
+        for _ in range(3):                     # prefill, first horizons
+            sched.step()
+        torch.cuda.synchronize()
+        run = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            sched.step()
+            run.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        ticks[overlap] += run
+        busy = ""
+        if i < 2:
+            busy_ms, _ = _kernel_busy(torch, sched.step)
+            busy = (", device busy not measured (the profiler saw no CUDA "
+                    "kernel events)" if busy_ms is None else
+                    f", device busy {busy_ms:.3f} ms in one profiled tick")
+        sched.run()
+        print(f"[overlap] {card}: {engine.cfg.name} decode ticks (4 slots, "
+              f"K 8), overlap {'on' if overlap else 'off'}: host ms "
+              f"{[round(t, 3) for t in run]}{busy}; reads found the "
+              f"horizon done/waited {sched.stats['sync_device_ready']}/"
+              f"{sched.stats['sync_device_wait']}")
+    med = {k: statistics.median(v) for k, v in ticks.items()}
+    print(f"[overlap] {card}: median host ms per decode tick over 16 "
+          f"ticks each: overlap off {med[False]:.3f} (range "
+          f"{min(ticks[False]):.3f}-{max(ticks[False]):.3f}), on "
+          f"{med[True]:.3f} ({min(ticks[True]):.3f}-{max(ticks[True]):.3f});"
+          f" on / off {med[True] / med[False]:.3f}")
+    if engine.alloc.pages_in_use != 0:
+        _fail("[overlap] the timing runs left pages behind")
 
 
 # -- the mixed stacks: ring pool, recurrent state, MoE -----------------------
@@ -1402,6 +1731,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     max_err = phase_kernel(torch, pa, ops, batched_paged_attention, dev)
+    max_err = max(max_err, phase_kernel_shared(torch, pa, ops,
+                                               batched_paged_attention, dev))
     timings = {label: phase_timing(torch, F, pa, ops,
                                    batched_paged_attention, dev, label, *rest)
                for label, *rest in PA_TIMED}
@@ -1432,6 +1763,14 @@ def main() -> int:
                                                   card, dp4a_rate)
     print(f"[qlm] phases took {time.perf_counter() - t0:.1f} s")
 
+    # phase 4c runs here, after phase 7: run before it, its profiled ticks
+    # left the profiler losing the first 6 of the brightness call's 8
+    # launches (as phase 11 did in the same place)
+    _free(torch)
+    t0 = time.perf_counter()
+    prefix_launches = phase_prefix(torch, pa, card)
+    print(f"[prefix] phase took {time.perf_counter() - t0:.1f} s")
+
     _free(torch)
     t0 = time.perf_counter()
     ring_err, ring_rows, hetero_launches = run_hetero()
@@ -1450,7 +1789,10 @@ def main() -> int:
     # launches: the qwen3 serve's and each mixed-stack path's, each read
     # with the count set to 0 just before it; times at the serve's shape
     # (seq_len 19), the ring shapes beside them
-    by_path = {"qwen3-0.6b": launches, **hetero_launches}
+    by_path = {"qwen3-0.6b": launches,
+               **{f"qwen3-0.6b prefix {mode}": n
+                  for mode, n in prefix_launches.items()},
+               **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": csrc.format("paged_attention", "paged_attention"),

@@ -162,14 +162,17 @@ def _padded(x: torch.Tensor) -> torch.Tensor:
 def admit_slot(state: PagedServeState, slot: int) -> PagedServeState:
     """Enable a VB for ``slot`` (in place): clear its translation row and
     length but allocate NOTHING — backing pages arrive on first dirty
-    writeback.  RECURRENT rows are zeroed; RING frames need no reset."""
-    state.page_table[slot] = 0
-    state.seq_lens[slot] = 0
-    state.slot_active[slot] = True
-    state.rg_h[:, slot] = 0.0
-    state.rg_conv[:, slot] = 0.0
-    state.ssm_state[:, slot] = 0.0
-    state.ssm_conv[:, slot] = 0.0
+    writeback.  RECURRENT rows are zeroed; RING frames need no reset.
+    Every write is a fill of a view with a scalar kernel argument, so the
+    op enqueues work and reads nothing (it runs while a decode horizon is
+    in flight, in the scheduler's overlap mode)."""
+    state.page_table[slot].zero_()
+    state.seq_lens[slot].zero_()
+    state.slot_active[slot].fill_(True)
+    state.rg_h[:, slot].zero_()
+    state.rg_conv[:, slot].zero_()
+    state.ssm_state[:, slot].zero_()
+    state.ssm_conv[:, slot].zero_()
     return state
 
 
@@ -201,6 +204,95 @@ def release_slot(state: PagedServeState, slot: int) -> PagedServeState:
     state.page_table[slot] = 0
     state.seq_lens[slot] = 0
     state.slot_active[slot] = False
+    return state
+
+
+# --------------------------------------------------------------------------
+# prefix sharing: refcounted read-only mapping + copy-on-write clone (the
+# serve-path re-instantiation of MTL.clone_vb).  Page-id lists reach these
+# ops as device tensors padded to a row (``VBIAllocator._padded_ids``);
+# counts, slots and lengths are host ints, passed to kernels as arguments.
+# --------------------------------------------------------------------------
+def map_prefix(state: PagedServeState, slot: int, page_ids: torch.Tensor,
+               n_shared: int, n_tokens: int) -> PagedServeState:
+    """Map ``page_ids[:n_shared]`` (already-filled prompt pages) read-only
+    into ``slot``'s page table and set its length to ``n_tokens``, in place
+    — one device scatter, no recompute, no allocation.  Each mapped page
+    gains a reference; the slot never writes them (its next write position
+    is the page boundary at ``n_tokens``)."""
+    P, n = state.max_pages_per_seq, state.n_pages
+    shared = torch.arange(P, device=state.device) < n_shared
+    refc = _padded(state.page_refcounts)
+    refc.index_add_(0, torch.where(shared, page_ids, n).long(),
+                    torch.ones((P,), dtype=refc.dtype, device=state.device))
+    state.page_refcounts.copy_(refc[:n])
+    state.page_table[slot].copy_(torch.where(shared, page_ids, 0))
+    state.seq_lens[slot].fill_(n_tokens)
+    state.slot_active[slot].fill_(True)
+    return state
+
+
+def clone_page_cow(state: PagedServeState, slot: int, page_idx: int,
+                   src_page: int, new_len: int) -> PagedServeState:
+    """Copy-on-write break for a *partially* shared page, in place: pop a
+    fresh page off the device free stack, copy ``src_page``'s K/V into it
+    for every full-attention layer, install it at ``page_table[slot,
+    page_idx]`` and set the slot's length to ``new_len`` (the matched
+    token count).  The source page keeps its references (the cache still
+    owns it); the clone belongs to the slot, which overwrites the
+    unmatched tail as prefill proceeds.  The popped id never leaves the
+    device: it is read from ``free_stack[free_top - 1]`` as a one-element
+    index tensor."""
+    dev = state.device
+    top = (state.free_top - 1).reshape(1).long()
+    dst = state.free_stack.index_select(0, top)                    # [1]
+    dst_l = dst.long()
+    src = torch.full((1,), src_page, dtype=torch.long, device=dev)
+    state.k_pages.index_copy_(1, dst_l, state.k_pages.index_select(1, src))
+    state.v_pages.index_copy_(1, dst_l, state.v_pages.index_select(1, src))
+    state.page_table[slot, page_idx:page_idx + 1].copy_(dst)
+    state.seq_lens[slot].fill_(new_len)
+    state.free_top.sub_(1)
+    # index_fill_ takes the scalar as a kernel argument (an indexed
+    # assignment of a Python scalar would copy it from the host and sync)
+    state.page_refcounts.index_fill_(0, dst_l, 1)
+    return state
+
+
+def retain_pages(state: PagedServeState, page_ids: torch.Tensor,
+                 n: int) -> PagedServeState:
+    """Add one reference to ``page_ids[:n]``, in place — the prefix cache
+    taking custody of freshly prefilled prompt pages so they outlive the
+    slot."""
+    held = torch.arange(page_ids.shape[0], device=state.device) < n
+    refc = _padded(state.page_refcounts)
+    refc.index_add_(0, torch.where(held, page_ids, state.n_pages).long(),
+                    torch.ones(page_ids.shape, dtype=refc.dtype,
+                               device=state.device))
+    state.page_refcounts.copy_(refc[:state.n_pages])
+    return state
+
+
+def release_pages(state: PagedServeState, page_ids: torch.Tensor,
+                  n: int) -> PagedServeState:
+    """Drop one reference on ``page_ids[:n]`` (prefix-cache eviction), in
+    place; pages reaching refcount zero return to the free stack."""
+    n_pages = state.n_pages
+    held = torch.arange(page_ids.shape[0], device=state.device) < n
+    refc = _padded(state.page_refcounts)
+    refc.index_add_(0, torch.where(held, page_ids, n_pages).long(),
+                    torch.full(page_ids.shape, -1, dtype=refc.dtype,
+                               device=state.device))
+    refc = refc[:n_pages]
+    freed = held & (refc[page_ids.long()] <= 0)
+    freed_i = freed.to(torch.int32)
+    dst = torch.where(freed, state.free_top + torch.cumsum(freed_i, 0) - 1,
+                      n_pages)
+    stack = _padded(state.free_stack)
+    stack[dst.long()] = page_ids
+    state.free_stack.copy_(stack[:n_pages])
+    state.free_top += freed_i.sum(dtype=torch.int32)
+    state.page_refcounts.copy_(torch.clamp(refc, min=0))
     return state
 
 

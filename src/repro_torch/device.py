@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,20 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' "
                          f"or 'cpu'")
     return dev
+
+
+def stage(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A fresh device tensor holding a copy of the host buffer ``buf``,
+    enqueued without waiting on the device.
+
+    On CUDA the bytes go through a fresh pinned buffer copied with
+    ``non_blocking=True``: a copy from pageable memory synchronises with
+    the stream, so it would wait for whatever is still running there (a
+    decode horizon in flight).  PyTorch's pinned-memory cache keeps that
+    buffer until the copy has run, and nothing else holds it, so the
+    host may refill ``buf`` as soon as this returns.  On the CPU, a
+    plain copy."""
+    src = torch.from_numpy(np.ascontiguousarray(buf))
+    if device.type != "cuda":
+        return src.clone()
+    return src.pin_memory().to(device, non_blocking=True)

@@ -1,28 +1,30 @@
 """Serving launcher: continuous batching over the paged engine on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --no-prefix-cache \\
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-0.6b --requests 6 --max-new 16              # smoke
-    PYTHONPATH=src python -m repro_torch.launch.serve --no-prefix-cache \\
-        --no-smoke --arch qwen3-0.6b                             # full width
-    PYTHONPATH=src python -m repro_torch.launch.serve --no-prefix-cache \\
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --no-smoke --arch qwen3-0.6b --shared-prefix 252 --overlap
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch gemma3-12b --device cpu             # local/global, on the CPU
 
 Counterpart of ``repro/launch/serve.py``, default (closed-loop) path only:
 ``serve/engine.py`` driven by ``serve/scheduler.py`` — admission, chunked
 prefill, the fused decode horizon, eviction and preemption — with page
-lifecycle through ``core/vbi/blocks.py::VBIAllocator``.  Every
-decoder-only arch is served: uniform, local/global and sliding-window
-attention, RG-LRU and Mamba-2 recurrent layers, top-k MoE; the launcher
-prints the stack's geometry (full, ring, RG-LRU and SSM layers, the
-window and its ring pages).  Weights are random, drawn from ``--seed``.
-``--device`` defaults to ``cuda`` and raises when there is no card;
-``--device cpu`` serves the smoke configs on the CPU.
-
-The prefix cache is not ported yet (ROADMAP.md § A7): the launcher
-refuses to run without ``--no-prefix-cache``, so that a run never silently
-differs from the reference's default.  ``--smoke``/``--no-smoke`` selects
-the reduced or the published width (the reference's ``--smoke`` flag
-cannot be switched off; here it can).
+lifecycle through ``core/vbi/blocks.py::VBIAllocator`` and, as in the
+reference, cross-request page sharing through the prefix cache
+(``serve/prefix_cache.py``) on by default: ``--no-prefix-cache`` turns it
+off, and it turns itself off for stacks with RING or RECURRENT layers.
+``--shared-prefix N`` puts one N-token system prompt, drawn from the seed
+before the prompts, in front of every request; ``--overlap`` stages the
+next tick on the host while the device runs the current decode horizon.
+Every decoder-only arch is served: uniform, local/global and
+sliding-window attention, RG-LRU and Mamba-2 recurrent layers, top-k MoE;
+the launcher prints the stack's geometry (full, ring, RG-LRU and SSM
+layers, the window and its ring pages).  Weights are random, drawn from
+``--seed``.  ``--device`` defaults to ``cuda`` and raises when there is
+no card; ``--device cpu`` serves the smoke configs on the CPU.
+``--smoke``/``--no-smoke`` selects the reduced or the published width
+(the reference's ``--smoke`` flag cannot be switched off; here it can).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import numpy as np
 from ..configs import ARCH_IDS, get_config, smoke_config
 from ..models.model import init_params
 from ..serve.engine import PagedEngine
+from ..serve.prefix_cache import PrefixCache
 from ..serve.scheduler import Scheduler
 
 
@@ -64,6 +67,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--prefill-chunk", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=4)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="shared system-prompt tokens prepended to every "
+                         "request (exercises the prefix cache)")
     ap.add_argument("--decode-horizon", type=int, default=8,
                     help="fused decode horizon K: decoding slots advance K "
                          "tokens per engine call with sampling and stopping "
@@ -74,7 +80,11 @@ def _parser() -> argparse.ArgumentParser:
                          "on the card, its plain twin on the CPU; 'gather': "
                          "the plain batched twin (CPU only)")
     ap.add_argument("--no-prefix-cache", action="store_true",
-                    help="required: the prefix cache is not ported yet")
+                    help="disable cross-request KV page sharing")
+    ap.add_argument("--overlap", action="store_true",
+                    help="double-buffered dispatch: stage the next tick on "
+                         "the host while the device runs the current "
+                         "decode horizon (same tokens)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
@@ -82,46 +92,56 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Run the closed-loop serve and return ``(finished_requests,
-    engine)``."""
-    ap = _parser()
-    args = ap.parse_args(argv)
-    if not args.no_prefix_cache:
-        ap.error("the prefix cache is not ported yet (ROADMAP.md § A7): "
-                 "pass --no-prefix-cache")
+    """Run the closed-loop serve and return ``(finished_requests, engine,
+    scheduler)``."""
+    args = _parser().parse_args(argv)
     cfg = serve_config(args.arch, args.smoke)
     params = init_params(cfg, seed=args.seed, device=args.device)
     return serve(cfg, params, requests=args.requests, max_new=args.max_new,
                  batch_slots=args.batch_slots,
                  prefill_chunk=args.prefill_chunk,
                  prompt_len=args.prompt_len,
+                 shared_prefix=args.shared_prefix,
                  decode_horizon=args.decode_horizon,
-                 attn_impl=args.attn_impl, seed=args.seed,
-                 device=args.device)
+                 attn_impl=args.attn_impl,
+                 prefix_cache=not args.no_prefix_cache,
+                 overlap=args.overlap, seed=args.seed, device=args.device)
 
 
 def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
           batch_slots: int = 4, prefill_chunk: int = 8, prompt_len: int = 4,
-          decode_horizon: int = 8, attn_impl: str = "kernel", seed: int = 0,
-          device="cuda"):
+          shared_prefix: int = 0, decode_horizon: int = 8,
+          attn_impl: str = "kernel", prefix_cache: bool = True,
+          overlap: bool = False, seed: int = 0, device="cuda"):
     """The launcher's serve on given params (on ``device``): ``requests``
-    prompts of ``prompt_len`` tokens drawn from ``seed``, each decoding
-    ``max_new`` tokens, through the engine (pages of 8 tokens, 32 pages a
-    slot) and the scheduler.  Returns ``(finished_requests, engine)``."""
+    prompts of ``shared_prefix`` system tokens (drawn first, shared by
+    all) and ``prompt_len`` tokens of their own, drawn from ``seed``, each
+    decoding ``max_new`` tokens, through the engine (pages of 8 tokens,
+    ``32 + shared_prefix // 8`` pages a slot) and the scheduler, with the
+    prefix cache unless ``prefix_cache`` is False or the stack cannot
+    share pages.  Returns ``(finished_requests, engine, scheduler)``."""
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, prompt_len).tolist()
+    system = rng.integers(0, cfg.vocab, shared_prefix).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
                for _ in range(requests)]
     page_size = 8
     engine = PagedEngine(
         cfg, params, page_size=page_size, max_seqs=batch_slots,
-        n_pages=1 + batch_slots * 32, attn_impl=attn_impl, device=device)
+        n_pages=1 + batch_slots * (32 + shared_prefix // page_size),
+        attn_impl=attn_impl, device=device)
     geom = engine.geom
     print(f"[serve] {cfg.name} on {engine.device} — attn_impl={attn_impl}; "
           f"geometry: n_full {geom.n_full}, n_ring {geom.n_ring}, n_rg "
           f"{geom.n_rg}, n_ssm {geom.n_ssm}, window {geom.window}, ring "
           f"pages {geom.ring_pages} of {page_size} tokens")
+    cache = PrefixCache(page_size=page_size) if prefix_cache else None
+    if cache is not None and not engine.supports_prefix_sharing:
+        print("[serve] prefix cache disabled: RING/RECURRENT layers are "
+              "ineligible for cross-request page sharing")
+        cache = None
     sched = Scheduler(engine, prefill_chunk=prefill_chunk,
-                      decode_horizon=decode_horizon)
+                      prefix_cache=cache, decode_horizon=decode_horizon,
+                      overlap=overlap)
     t0 = time.perf_counter()
     for p in prompts:
         sched.add_request(p, max_new=max_new)
@@ -133,9 +153,12 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     n_out = sum(len(r.out) for r in finished)
     print(f"[serve] engine stats {engine.stats} allocator stats "
           f"{engine.alloc.stats} sched stats {sched.stats}")
+    if cache is not None:
+        print(f"[serve] prefix cache: hit_rate={cache.hit_rate:.2f} "
+              f"stats {cache.stats}")
     print(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
           f"{dt:.3f}s on {engine.device} ({n_out / dt:.1f} tok/s)")
-    return finished, engine
+    return finished, engine, sched
 
 
 if __name__ == "__main__":

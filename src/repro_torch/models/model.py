@@ -416,8 +416,14 @@ def forward_train(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
 
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, List]:
-    """batch["tokens"] [B, S] → (last-position logits [B, 1, V], caches)."""
+    """batch["tokens"] [B, S] → (last-position logits [B, 1, V], caches)
+    (decoder-only stacks; the reference's vision and audio inputs are not
+    ported)."""
     _check_supported(cfg)
+    if cfg.n_vis_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: vision embeddings are not ported yet "
+            f"(ROADMAP.md § A5b)")
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
     caches = init_cache(cfg, x.shape[0], max_len, device=x.device)

@@ -415,15 +415,24 @@ class PagedEngine:
         return block
 
     @staticmethod
-    def block_ready(x: torch.Tensor) -> bool:
-        """Non-blocking probe: has the device finished computing ``x``?
-        Records an event behind everything enqueued so far on the current
-        stream (so after ``x``'s producer) and queries it."""
+    def ready_event(x: torch.Tensor) -> Optional[torch.cuda.Event]:
+        """An event recorded behind everything enqueued so far on the
+        current stream — so right behind ``x``'s producer when called as
+        ``x`` is dispatched; None for a CPU tensor."""
         if x.device.type != "cuda":
-            return True
+            return None
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(x.device))
-        return ev.query()
+        return ev
+
+    @staticmethod
+    def block_ready(x: torch.Tensor,
+                    event: Optional[torch.cuda.Event]) -> bool:
+        """Non-blocking probe: has the device finished computing ``x``?
+        ``event`` is the one :meth:`ready_event` recorded at ``x``'s
+        dispatch (None for a CPU tensor): an event recorded later would
+        also wait on work enqueued after ``x``."""
+        return x.device.type != "cuda" or event.query()
 
     def prefill_chunk(self, tokens: torch.Tensor,
                       n_tokens: torch.Tensor) -> torch.Tensor:

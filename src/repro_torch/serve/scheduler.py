@@ -3,7 +3,8 @@ policy; counterpart of ``repro/serve/scheduler.py``).
 
 The device owns translation and allocation mechanics (``core/vbi/
 kvcache.py``), the VBIAllocator (``core/vbi/blocks.py``) owns the memory
-interface, and this module owns policy only: which request, which slot,
+interface — every page-lifecycle mutation (reserve, share, COW, custody,
+release) — and this module owns policy only: which request, which slot,
 which victim, when.  The host never reads device state on the token path;
 the allocator mirrors page accounting arithmetically.
 
@@ -13,31 +14,50 @@ Policies:
     the allocator's mirrored budget covers its prompt plus its first decode
     horizon (falling back to one decode page); the budget is reserved at
     admission, so concurrent prefills never oversubscribe the device free
-    stack;
+    stack.  With a :class:`~repro_torch.serve.prefix_cache.PrefixCache`
+    attached, admission first maps the longest cached prefix read-only
+    (no recompute), COW-clones a partially matching page, and budgets
+    only the uncached suffix;
   * **chunked prefill** — admitted prompts are fed ``prefill_chunk``
-    tokens per engine call, ragged across slots; the next-token argmax runs
-    on the device and the host reads the [S] int32 only on chunks where
-    some slot finished its prompt;
+    tokens per engine call, ragged across slots; finished prompts hand
+    their full pages to the prefix cache (custody moves through the
+    allocator — the mirror stays exact).  The next-token argmax runs on
+    the device and the host reads the [S] int32 only on chunks where some
+    slot finished its prompt;
   * **the decode horizon** — decoding slots advance up to
     ``decode_horizon`` tokens per ``PagedEngine.decode_many`` call with
     sampling, feedback and stopping on the device, and the host reads the
     ``[K, S]`` token block once per horizon.  The worst-case span is
-    reserved through the allocator first; under pressure the horizon is
-    truncated before anything is preempted, and commits/unreserves are
-    reconciled from the returned block;
-  * **eviction** — finished requests free their block;
+    reserved through the allocator first; under pressure cold cached
+    prefixes are evicted, then the horizon is truncated, before anything
+    is preempted; commits/unreserves are reconciled from the returned
+    block;
+  * **eviction** — finished requests free their block; the device frees
+    only refcount-zero pages, so cached prompt pages survive.  Cold cached
+    prefixes are evicted LRU when admission or decode needs pages;
   * **preemption** — if a decode horizon cannot be covered even at K=1,
-    the youngest running non-PINNED request is preempted: its pages are
-    discarded and it re-enters the queue head with its generated tokens,
-    to be re-prefilled on re-admission (greedy decode makes this exact).
+    the youngest running non-PINNED request is preempted: its fed prefix
+    is offered to the prefix cache, its pages are discarded and it
+    re-enters the queue head with its generated tokens, to be restored
+    from the cache and re-prefilled on re-admission (greedy decode makes
+    this exact).  There is no host swap tier yet (ROADMAP.md § A6);
+  * **double-buffered dispatch** (``overlap=True``) — the horizon-N token
+    block is left in flight at the end of the tick and read at the start
+    of the next, after admission (slot and span reservation, prefix-cache
+    lookup, map and COW) and the next prefill chunk's host staging, which
+    all run while the device still computes horizon N.  Staging only
+    charges the allocator's host mirror and only touches slots outside the
+    in-flight decode set, so the reconciliation at the deferred read is
+    the non-overlapped one: per-request tokens are equal with overlap on
+    or off.
 
-Host staging: every tick builds fresh numpy buffers and copies them into
-fresh device tensors with a blocking copy, so no in-flight transfer can
-read a buffer the host refills on the next tick.
+Host staging: every tick builds fresh numpy buffers and copies each into a
+fresh device tensor (``device.py::stage``: on CUDA through a fresh pinned
+buffer, without waiting on the device), so no in-flight transfer can read
+a buffer the host refills on the next tick.
 
-Not in this slice (ROADMAP.md § A7-A9): the prefix cache, telemetry,
-double-buffered overlap, the fault plane, host-swap resume and disagg
-handoff.  Asking for any of them raises.
+Not in this slice (ROADMAP.md § A8-A9): telemetry and the fault plane;
+asking for either raises.
 """
 from __future__ import annotations
 
@@ -50,7 +70,9 @@ import torch
 
 from ..core.vbi.address_space import VBProps
 from ..core.vbi.blocks import DEFAULT_BLOCK_PROPS, VirtualBlock
+from ..device import stage
 from .engine import PagedEngine
+from .prefix_cache import PrefixCache, PrefixMatch, _Node
 
 
 def check_request_fits(engine: PagedEngine, alloc, prompt_len: int,
@@ -68,7 +90,9 @@ def check_request_fits(engine: PagedEngine, alloc, prompt_len: int,
             f"request needs {lifetime} tokens > per-slot capacity "
             f"{cap} (max_pages_per_seq={engine.max_pages} × "
             f"page_size={engine.page_size})")
-    # ... and its page budget must fit the pool at all
+    # ... and its page budget must fit the pool at all.  Pages the prefix
+    # cache could share cut the budget, so only reject what no amount of
+    # sharing can save (full prompt pages shareable at best).
     pool = engine.n_pages - 1
     min_budget = alloc.pages_for(lifetime) + 1 - shareable_pages
     if min_budget > pool:
@@ -96,8 +120,10 @@ class _SlotState:
     req: Request
     block: VirtualBlock
     prefill_len: int        # tokens to prefill (snapshot at admission)
-    fed: int = 0            # tokens written into the KV so far
+    fed: int = 0            # tokens written/mapped into the KV so far
     admit_seq: int = 0      # admission order (preemption picks the youngest)
+    inserted: bool = False  # prompt pages already offered to the cache
+    pinned: List[_Node] = dataclasses.field(default_factory=list)
 
     @property
     def prefilling(self) -> bool:
@@ -106,61 +132,133 @@ class _SlotState:
 
 class Scheduler:
     def __init__(self, engine: PagedEngine, prefill_chunk: int = 8,
-                 prefix_cache=None,
+                 prefix_cache: Optional[PrefixCache] = None,
                  block_props: VBProps = DEFAULT_BLOCK_PROPS,
                  decode_horizon: int = 1, overlap: bool = False,
                  telemetry=None, faults=None):
-        unported = {"prefix_cache": prefix_cache, "telemetry": telemetry,
-                    "faults": faults}
+        unported = {"telemetry": telemetry, "faults": faults}
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP.md § A7-A9); pass "
+                    f"{name} is not ported yet (ROADMAP.md § A8-A9); pass "
                     f"{name}=None")
-        if overlap:
-            raise NotImplementedError(
-                "double-buffered overlap is not ported yet (ROADMAP.md "
-                "§ A7); pass overlap=False")
+        if prefix_cache is not None:
+            if prefix_cache.page_size != engine.page_size:
+                raise ValueError(
+                    f"prefix cache page_size {prefix_cache.page_size} != "
+                    f"engine page_size {engine.page_size}")
+            # RING frames are position-recycled and RECURRENT state is not
+            # page-addressed: neither survives outside its slot, so
+            # cross-request page sharing exists only for uniform
+            # full-attention stacks
+            if not engine.supports_prefix_sharing:
+                raise ValueError(
+                    f"{engine.cfg.name}: prefix cache requires a uniform "
+                    f"full-attention stack (RING/RECURRENT layers are "
+                    f"ineligible for sharing)")
         if decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         self.engine = engine
         self.alloc = engine.alloc          # the one memory API
         self.prefill_chunk = prefill_chunk
+        self.prefix_cache = prefix_cache
         self.block_props = block_props
         self.decode_horizon = decode_horizon
+        self.overlap = overlap
         self.queue: Deque[Request] = deque()
         self.slots: Dict[int, _SlotState] = {}
         self.finished: List[Request] = []
         self._next_rid = 0
         self._admit_seq = 0
+        # the in-flight horizon (overlap mode): the un-read [K, S] device
+        # token block, the event recorded at its dispatch, and the slot ids
+        # and per-slot step budgets it was dispatched with, reconciled at
+        # the NEXT tick's read
+        self._pending: Optional[tuple] = None
         self.stats = {k: 0 for k in (
-            "preemptions", "steps", "prefill_tokens", "host_syncs",
+            "preemptions", "steps", "prefix_hits", "prefix_tokens_reused",
+            "cache_evicted_pages", "prefill_tokens", "host_syncs",
             "prefill_host_reads", "prefill_reads_skipped",
-            "horizon_truncations", "sync_device_ready", "sync_device_wait")}
+            "horizon_truncations", "overlap_staged_ticks",
+            "sync_device_ready", "sync_device_wait")}
 
     def _to_device(self, buf: np.ndarray) -> torch.Tensor:
-        """A fresh device tensor holding a copy of ``buf`` (blocking copy:
-        the host may refill ``buf`` as soon as this returns)."""
-        return torch.tensor(buf, device=self.engine.device)
+        """A fresh device tensor holding a copy of ``buf`` (the host may
+        refill ``buf`` as soon as this returns)."""
+        return stage(buf, self.engine.device)
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt: List[int], max_new: int,
                     rid: Optional[int] = None) -> int:
-        check_request_fits(self.engine, self.alloc, len(prompt), max_new)
+        shareable = (len(prompt) // self.engine.page_size
+                     if self.prefix_cache is not None else 0)
+        check_request_fits(self.engine, self.alloc, len(prompt), max_new,
+                           shareable_pages=shareable)
         rid = self._next_rid if rid is None else rid
         self._next_rid = max(self._next_rid, rid) + 1
         self.queue.append(Request(rid, list(prompt), max_new))
         return rid
 
     # -- page budgeting (delegated to the allocator's host mirror) -----------
-    def _budget_for(self, req: Request, horizon: int = 1) -> int:
+    def _budget_for(self, req: Request, n_shared: int = 0,
+                    horizon: int = 1) -> int:
         """Current span extended by the decode horizon (capped at what the
-        request can still generate), plus one page of headroom."""
+        request can still generate), plus one page of headroom, less the
+        pages mapped from the prefix cache (not the block's to allocate).
+        ``horizon=1`` is the minimum viable budget."""
         if not self.engine.has_full:
             return 0
         rem = max(1, req.max_new - len(req.out))
         span = len(req.tokens) + min(horizon, rem) - 1
-        return self.alloc.pages_for(span) + 1
+        return self.alloc.pages_for(span) + 1 - n_shared
+
+    def _degraded_budget(self, req: Request, n_shared: int = 0) -> int:
+        """Admission budget: the full-horizon span first (evicting cold
+        cache on shortfall); if it still does not fit, the minimum viable
+        budget — the first horizon gets truncated, which beats leaving
+        the slot idle."""
+        budget = self._budget_for(req, n_shared, self.decode_horizon)
+        if budget > self.alloc.free_pages:
+            self._evict_cache(budget - self.alloc.free_pages)
+        if budget > self.alloc.free_pages:
+            budget = self._budget_for(req, n_shared)
+        return budget
+
+    # -- prefix cache custody ------------------------------------------------
+    def _evict_cache(self, want_pages: int) -> int:
+        """LRU-drop cold cached prefixes to reclaim ``want_pages``.  Only
+        unpinned nodes are dropped, so each page's device refcount is
+        exactly 1 and the allocator mirror counts it freed without a
+        read."""
+        if self.prefix_cache is None or want_pages <= 0:
+            return 0
+        pages = self.prefix_cache.evict(want_pages)
+        if pages:
+            self.alloc.release(pages)
+            self.stats["cache_evicted_pages"] += len(pages)
+        return len(pages)
+
+    def _cache_insert(self, st: _SlotState) -> None:
+        """Offer the block's fully written pages (prompt, or fed prefix at
+        preemption) to the cache.  Newly cached pages change custody from
+        the block's reservation to the cache ledger via the allocator."""
+        if self.prefix_cache is None:
+            return
+        n_full = st.fed // self.engine.page_size
+        if n_full == 0:
+            return
+        pages = self.alloc.page_row(st.block, n_full)   # control-path read
+        new_nodes = self.prefix_cache.insert(st.req.tokens, pages)
+        if new_nodes:
+            self.alloc.retain([n.page for n in new_nodes],
+                              from_block=st.block)
+            self.prefix_cache.pin(new_nodes)
+            st.pinned.extend(new_nodes)
+
+    def _unpin(self, st: _SlotState) -> None:
+        if self.prefix_cache is not None and st.pinned:
+            self.prefix_cache.unpin(st.pinned)
+            st.pinned = []
 
     # -- policy: admission / eviction / preemption ---------------------------
     def _admit(self) -> None:
@@ -168,33 +266,68 @@ class Scheduler:
                       if s not in self.slots]
         while self.queue and free_slots:
             req = self.queue[0]
-            budget = self._budget_for(req, self.decode_horizon)
+            match: Optional[PrefixMatch] = None
+            if self.prefix_cache is not None:
+                match = self.prefix_cache.lookup(req.tokens)
+                # pin before any eviction so the matched pages cannot be
+                # reclaimed out from under the mapping about to be made
+                self.prefix_cache.pin(match.all_nodes())
+            budget = self._degraded_budget(
+                req, len(match.pages) if match else 0)
+            if budget > self.alloc.free_pages and match is not None \
+                    and match.partial_node is not None:
+                # the pinned COW source may itself be the page needed
+                # back: losing a < page_size prefill shortcut beats never
+                # admitting (and run()'s impossibility check counts this
+                # page as evictable, so holding it would livelock)
+                self.prefix_cache.unpin([match.partial_node])
+                self.prefix_cache.drop_partial(match)
+                self._evict_cache(budget - self.alloc.free_pages)
             if budget > self.alloc.free_pages:
-                budget = self._budget_for(req)
-            if budget > self.alloc.free_pages:
+                if match is not None:
+                    self.prefix_cache.unpin(match.all_nodes())
                 break
             self.queue.popleft()
             slot = free_slots.pop(0)
             blk = self.alloc.alloc(slot, props=self.block_props)
             self.alloc.reserve_pages(blk, budget)
-            self.slots[slot] = _SlotState(req, blk,
-                                          prefill_len=len(req.tokens),
-                                          admit_seq=self._admit_seq)
+            st = _SlotState(req, blk, prefill_len=len(req.tokens),
+                            admit_seq=self._admit_seq)
             self._admit_seq += 1
+            if match is not None and match.n_tokens:
+                ps = self.engine.page_size
+                if match.pages:
+                    self.alloc.map_shared(blk, match.pages,
+                                          len(match.pages) * ps)
+                if match.partial_len:
+                    self.alloc.cow_break(blk, len(match.pages),
+                                         match.partial_page, match.n_tokens)
+                st.fed = match.n_tokens
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += match.n_tokens
+            if match is not None:
+                self.prefix_cache.record(match, len(req.tokens))
+                st.pinned.extend(match.all_nodes())
+            self.slots[slot] = st
 
     def _evict(self, slot: int) -> None:
         st = self.slots.pop(slot)
+        self._unpin(st)
         self.alloc.free(st.block)
         self.finished.append(st.req)
 
     def _preempt_one(self) -> bool:
         """Release the youngest running non-PINNED slot back to the queue
-        head (discard placement: re-admission re-prefills its tokens)."""
+        head: its fed prefix is offered to the prefix cache and its pages
+        are discarded; re-admission restores from the cache and
+        re-prefills the rest."""
         victims = [s for s, st in self.slots.items() if not st.block.pinned]
         if not victims:
             return False
         slot = max(victims, key=lambda s: self.slots[s].admit_seq)
         st = self.slots.pop(slot)
+        self._cache_insert(st)
+        self._unpin(st)
         self.alloc.free(st.block)
         st.req.preemptions += 1
         self.queue.appendleft(st.req)    # keeps its generated prefix
@@ -204,10 +337,11 @@ class Scheduler:
     def _plan_horizon(self, dec_slots: List[int]
                       ) -> Tuple[int, Dict[int, int]]:
         """Pick this tick's horizon K and span-reserve it.  Shrinks only
-        under pressure: truncate the horizon before preempting.  Returns
-        ``(K, wants)`` where ``wants[slot]`` is the per-slot step budget
-        whose worst-case span was reserved — exactly the ``steps_left`` the
-        device must get."""
+        under pressure, in escalating order: evict cold cached prefixes,
+        then truncate the horizon, then preempt.  Returns ``(K, wants)``
+        where ``wants[slot]`` is the per-slot step budget whose worst-case
+        span was reserved — exactly the ``steps_left`` the device must
+        get."""
         def want(s: int, k: int) -> int:
             st = self.slots[s]
             return min(k, st.req.max_new - len(st.req.out))
@@ -229,6 +363,8 @@ class Scheduler:
         while k > 1 and k // 2 >= want_max:
             k //= 2
         while (short := deficit(k)) > 0:
+            if self._evict_cache(short):
+                continue
             if k > 1:
                 k = max(1, k // 2)
                 self.stats["horizon_truncations"] += 1
@@ -248,12 +384,14 @@ class Scheduler:
         return k, wants
 
     # -- one scheduler tick ---------------------------------------------------
-    def _prefill(self) -> List[int]:
-        """Stage, dispatch and reconcile one chunked-prefill step for the
-        slots still consuming their prompt; returns those slots."""
+    def _prefill_stage(self) -> Optional[tuple]:
+        """Host half of a chunked-prefill step: pick the slots still
+        consuming their prompt, charge the allocator mirror and fill fresh
+        numpy buffers.  Touches no device state, so in overlap mode it runs
+        entirely under the in-flight decode horizon."""
         pre = {s: st for s, st in self.slots.items() if st.prefilling}
         if not pre:
-            return []
+            return None
         S, C = self.engine.max_seqs, self.prefill_chunk
         toks = np.zeros((S, C), np.int32)
         counts = np.zeros((S,), np.int32)
@@ -262,9 +400,26 @@ class Scheduler:
             self.alloc.reserve(st.block, st.fed + n)
             toks[s, :n] = st.req.tokens[st.fed:st.fed + n]
             counts[s] = n
+        return pre, toks, counts
+
+    def _prefill_launch(self, staged: Optional[tuple]) -> Optional[tuple]:
+        """Device half: copy the staged buffers to the device and dispatch
+        the chunk."""
+        if staged is None:
+            return None
+        pre, toks, counts = staged
         nxt_dev = self.engine.prefill_chunk(self._to_device(toks),
                                             self._to_device(counts))
         self.stats["prefill_tokens"] += int(counts.sum())
+        return pre, counts, nxt_dev
+
+    def _prefill_finish(self, handle: Optional[tuple]) -> None:
+        """Reconcile a dispatched chunk: the [S] int32 of next tokens is
+        read only if some slot finished its prompt this chunk; a finished
+        prompt offers its pages to the cache and takes its first token."""
+        if handle is None:
+            return
+        pre, counts, nxt_dev = handle
         finishing = [s for s, st in pre.items()
                      if st.fed + counts[s] >= st.prefill_len]
         nxt = None
@@ -278,13 +433,17 @@ class Scheduler:
             st.fed += int(counts[s])
             self.alloc.commit(st.block, st.fed)
             if not st.prefilling:          # prompt done → first token
+                if not st.inserted:        # share the prompt's KV pages
+                    self._cache_insert(st)
+                    st.inserted = True
                 st.req.out.append(int(nxt[s]))
-        return list(pre)
 
-    def _decode(self, pre_ids: List[int]) -> None:
-        """Plan, dispatch and reconcile one fused decode horizon for slots
-        past their prompt.  The token block is THE one host read of the
-        horizon."""
+    def _decode_dispatch(self, pre_ids) -> None:
+        """Plan and dispatch one fused decode horizon for slots past their
+        prompt, leaving the [K, S] token block in flight (``_pending``)
+        with an event recorded right behind it.  The worst-case span is
+        reserved before the dispatch, so the reconciliation can be
+        deferred a whole tick without oversubscribing the free stack."""
         dec_ids = [s for s, st in self.slots.items()
                    if not st.prefilling and s not in pre_ids]
         if not dec_ids:
@@ -304,7 +463,20 @@ class Scheduler:
         block_dev = self.engine.decode_many(
             self._to_device(toks), self._to_device(mask),
             self._to_device(steps), k)
-        ready = self.engine.block_ready(block_dev)
+        self._pending = (block_dev, self.engine.ready_event(block_dev),
+                         dec_ids, wants)
+
+    def _decode_reconcile(self) -> None:
+        """THE one host read of the horizon: pull the [K, S] int32 token
+        block and reconcile commits/unreserves from it.  In overlap mode
+        this runs a tick after the dispatch; the slots it touches are
+        exactly the dispatched ``dec_ids`` (admission in between only
+        fills other slots), so the arithmetic is the non-overlapped one."""
+        if self._pending is None:
+            return
+        block_dev, event, dec_ids, wants = self._pending
+        self._pending = None
+        ready = self.engine.block_ready(block_dev, event)
         self.stats["sync_device_ready" if ready else "sync_device_wait"] += 1
         block = block_dev.cpu().numpy()
         self.stats["host_syncs"] += 1
@@ -328,13 +500,41 @@ class Scheduler:
 
     def step(self) -> List[Request]:
         """Admit, prefill one chunk, decode one horizon; returns the
-        requests that finished this tick."""
+        requests that finished this tick.
+
+        ``overlap=False``: dispatch, read and reconcile within the tick.
+        ``overlap=True``: the read of horizon N is deferred to the start of
+        tick N+1, after admission and the prefill chunk's host staging, so
+        the host stages while the device runs horizon N.  Per-request
+        tokens are equal either way; only when a queued request is
+        admitted can shift by one tick."""
         self.stats["steps"] += 1
         done_before = len(self.finished)
-        self._admit()
-        pre_ids = self._prefill()
-        self._decode(pre_ids)
-        self._evict_finished()
+        if self.overlap and self._pending is not None:
+            self.stats["overlap_staged_ticks"] += 1
+            self._admit()                      # staged under horizon N ...
+            staged = self._prefill_stage()     # ... host half only
+            self._decode_reconcile()           # horizon N's deferred read
+            handle = self._prefill_launch(staged)
+        else:
+            self._admit()
+            handle = self._prefill_launch(self._prefill_stage())
+        self._prefill_finish(handle)
+        if self.overlap:
+            # evict before dispatching horizon N+1: a slot finished at the
+            # deferred read must not ride into the next in-flight horizon
+            self._evict_finished()
+            if self.queue:
+                # refill pass: the staged _admit ran before the deferred
+                # read could free any slot; no horizon is in flight here,
+                # so this is plain admission, and the refilled slot joins
+                # the next tick's prefill chunk
+                self._admit()
+        pre_ids = handle[0].keys() if handle else ()
+        self._decode_dispatch(pre_ids)
+        if not self.overlap:
+            self._decode_reconcile()
+            self._evict_finished()
         return self.finished[done_before:]
 
     def run(self, max_steps: int = 100_000) -> List[Request]:
@@ -344,16 +544,24 @@ class Scheduler:
                 break
             self.step()
             if self.queue and not self.slots:
-                # nothing running and the head request still couldn't be
-                # admitted — it can never fit this pool
-                if self._budget_for(self.queue[0]) > self.alloc.free_pages:
+                # nothing running and the head request still could not be
+                # admitted by step()'s _admit pass (which already tried
+                # cache eviction) — it can never fit this pool
+                evictable = (self.prefix_cache.evictable_pages
+                             if self.prefix_cache else 0)
+                if self._budget_for(self.queue[0]) > \
+                        self.alloc.free_pages + evictable:
                     raise RuntimeError(
                         f"request {self.queue[0].rid} needs "
                         f"{self._budget_for(self.queue[0])} pages; pool has "
-                        f"{self.alloc.free_pages} free")
+                        f"{self.alloc.free_pages} free + {evictable} "
+                        f"evictable cached")
         if self.queue or self.slots:
             raise RuntimeError(
                 f"run() exhausted {max_steps} steps with "
                 f"{len(self.queue)} queued and {len(self.slots)} running "
                 f"requests still unfinished")
+        if self._pending is not None:
+            raise RuntimeError("a drained run left a decode horizon in "
+                               "flight")
         return self.finished

@@ -1,6 +1,6 @@
 """Shared helpers of the port's parity tests (``tests/test_torch_*.py``):
-the reference's params bridged to the port through numpy, and the
-reference model's greedy decode."""
+the reference's params bridged to the port through numpy, the reference
+model's greedy decode, and a page pool without a model."""
 from functools import lru_cache
 
 import jax
@@ -9,6 +9,7 @@ import numpy as np
 
 from repro.launch.serve import serve_config
 from repro.models import model as jm
+from repro_torch.core.vbi.kvcache import init_serve_state
 from repro_torch.models import model as tm
 
 
@@ -38,3 +39,17 @@ def jax_greedy(cfg, params, prompt, max_new):
             jnp.int32(pos))
         out.append(int(jnp.argmax(logits[0, 0])))
     return out
+
+
+class Pool:
+    """The engine's pool protocol without a model: a one-layer CPU state
+    and its geometry, for driving a ``VBIAllocator`` alone."""
+
+    def __init__(self, n_pages, page_size, max_seqs, max_pages):
+        self.n_pages, self.page_size = n_pages, page_size
+        self.max_seqs, self.max_pages = max_seqs, max_pages
+        self.placement = ("cpu:0",)
+        self.state = init_serve_state(
+            n_layers=1, n_pages=n_pages, page_size=page_size, n_kv=1,
+            head_dim=2, max_seqs=max_seqs, max_pages_per_seq=max_pages,
+            device="cpu")

@@ -5,30 +5,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import Pool
 from repro.core.vbi.blocks import PagePool, VBIAllocator as JAlloc
 from repro_torch.core.vbi.address_space import VBProps
 from repro_torch.core.vbi.blocks import DEFAULT_BLOCK_PROPS, VBIAllocator
-from repro_torch.core.vbi.kvcache import init_serve_state
-
-
-class _Pool:
-    """The engine's pool protocol without a model."""
-
-    def __init__(self, n_pages, page_size, max_seqs, max_pages):
-        self.n_pages, self.page_size = n_pages, page_size
-        self.max_seqs, self.max_pages = max_seqs, max_pages
-        self.placement = ("cpu:0",)
-        self.state = init_serve_state(
-            n_layers=1, n_pages=n_pages, page_size=page_size, n_kv=1,
-            head_dim=2, max_seqs=max_seqs, max_pages_per_seq=max_pages,
-            device="cpu")
 
 
 def _pair():
     geo = dict(n_pages=17, page_size=4, max_seqs=3)
     jal = JAlloc(PagePool(n_layers=1, n_kv=1, head_dim=2,
                           max_pages_per_seq=8, **geo))
-    tal = VBIAllocator(_Pool(max_pages=8, **geo))
+    tal = VBIAllocator(Pool(max_pages=8, **geo))
     return jal, tal
 
 
@@ -97,6 +84,6 @@ def test_oversubscription_and_unported_parts_raise():
         tal.reserve_pages(blk, 17)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         VBIAllocator(tal.pool, host_swap_pages=4)
-    assert not hasattr(tal, "swap_out") and not hasattr(tal, "map_shared")
+    assert not hasattr(tal, "swap_out") and hasattr(tal, "map_shared")
     assert torch.equal(tal.pool.state.slot_active,
                        torch.tensor([True, False, False]))

@@ -23,6 +23,13 @@ runs on a machine without JAX:
   * the mixed stacks' smoke configs served on the card give the plain
     model's greedy decode, with (full + ring layers) x token steps kernel
     launches;
+  * prefix sharing: the kernel on page tables whose rows share pages (one
+    a COW copy) is bit-equal to the kernel on private copies; the launcher
+    with a shared system prompt, cache on and overlap off and on, gives
+    the plain greedy decode with hits and COW clones and drains its pool;
+    the overlap's staged half (cache eviction, admission with a hit,
+    prefill staging) runs under ``set_sync_debug_mode("error")`` while a
+    decode horizon's event is pending;
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
     their plain versions (ragged tails, both styles, every block size, 1,
     2 and 4 words per thread, div at 32 bits in blocks of 1,024); the
@@ -55,11 +62,13 @@ from repro_torch.kernels.bitserial_matmul import ref as bs_ref
 from repro_torch.kernels.paged_attention import ops, paged_attention
 from repro_torch.core.vbi.kvcache import make_ring_table
 from repro_torch.kernels.simdram_vm import ops as vm
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.serve import serve_config
 from repro_torch.models import model as tm
 from repro_torch.models.model import init_params
 from repro_torch.models.quantized import qmm, quantize_serving_params
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Scheduler
 
 from _torch_simdram_cases import alias_program, hand_program
@@ -341,6 +350,114 @@ def test_mixed_stack_horizon_is_sync_free_and_matches_cpu(dev, arch):
 
 
 # -- SIMDRAM: transposition unit and μProgram VM -----------------------------
+def test_kernel_on_shared_page_tables_equals_private_copies(dev):
+    """Rows 0 and 1 on the same pages, row 2 on them but a COW copy of the
+    last: bit-equal to the same launch on private copies of each row's
+    pages, within 1e-5 of the plain twin, at seq_len 19 and 256."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    n_kv, g, d, ps, width = 8, 2, 128, 8, 32
+    for seq_len in (19, 256):
+        n_used = -(-seq_len // ps)
+        n_pages = 2 + n_used
+        q = torch.randn((3, n_kv, g, d), generator=gen, device=dev)
+        q[1] = q[0]
+        k = torch.randn((n_pages, ps, n_kv, d), generator=gen, device=dev)
+        v = torch.randn((n_pages, ps, n_kv, d), generator=gen, device=dev)
+        base = torch.randperm(n_pages - 2, generator=gen, device=dev) + 1
+        cow = n_pages - 1
+        k[cow, :4], v[cow, :4] = k[base[-1], :4], v[base[-1], :4]
+        pt = torch.zeros((3, width), dtype=torch.int32, device=dev)
+        pt[:, :n_used] = base.to(torch.int32)
+        pt[2, n_used - 1] = cow
+        ppt = torch.zeros_like(pt)
+        ppt[:, :n_used] = (1 + torch.arange(3 * n_used, device=dev)
+                           .view(3, n_used)).to(torch.int32)
+        src = pt[:, :n_used].reshape(-1).long()
+        pk = torch.zeros((1 + 3 * n_used, ps, n_kv, d), device=dev)
+        pv = torch.zeros_like(pk)
+        pk[1:], pv[1:] = k[src], v[src]
+        ln = torch.full((3,), seq_len, dtype=torch.int32, device=dev)
+        plain = batched_paged_attention(q, k, v, pt, ln, width)
+        for splits, blocks in ((None, None), (1, 1), (None, 2), (3, 5)):
+            got = paged_attention(q, k, v, pt, ln, width, splits=splits,
+                                  blocks=blocks)
+            priv = paged_attention(q, pk, pv, ppt, ln, width,
+                                   splits=splits, blocks=blocks)
+            assert torch.equal(got, priv) and torch.equal(got[0], got[1])
+            torch.testing.assert_close(got, plain, **TOL)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_prefix_cache_serves_on_card_as_plain_greedy(dev, overlap):
+    cfg = serve_config("qwen3-0.6b")
+    params = init_params(cfg, seed=0, device=dev)
+    before = paged_attention.launches
+    fin, eng, sched = launch_serve.serve(
+        cfg, params, requests=6, max_new=5, decode_horizon=4,
+        shared_prefix=20, overlap=overlap, device=dev)
+    assert (paged_attention.launches - before
+            == eng.geom.n_full * eng.stats["token_steps"])
+    assert sched.stats["prefix_hits"] == eng.alloc.stats["cow_clones"] == 2
+    assert sched.stats["prefix_tokens_reused"] == 40
+    assert (sched.stats["overlap_staged_ticks"] > 0) == overlap
+    for req in fin:
+        _plain_greedy_agrees(cfg, params, req, dev)
+    assert eng.free_pages == eng.alloc.free_pages
+    cache = sched.prefix_cache
+    eng.alloc.release(cache.evict(cache.n_pages))
+    assert eng.pages_in_use == 0
+
+
+def test_prefix_staged_half_is_sync_free(dev):
+    """Cache eviction, admission with a hit (map_shared + cow_break) and
+    prefill staging, with every host sync an error, while the event of
+    the horizon in flight is pending (a spin kernel queued behind it)."""
+    cfg = serve_config("qwen3-0.6b")
+    params = init_params(cfg, seed=0, device=dev)
+    eng = PagedEngine(cfg, params, n_pages=65, page_size=8, max_seqs=4,
+                      max_pages_per_seq=16, device=dev)
+    sched = Scheduler(eng, prefill_chunk=8, decode_horizon=4, overlap=True,
+                      prefix_cache=PrefixCache(8))
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab, 20).tolist()
+    sched.add_request(rng.integers(0, cfg.vocab, 16).tolist(), max_new=2)
+    sched.run()                          # 2 cold cached pages
+    sched.add_request(system + [5, 6], max_new=30)
+    while sched.prefix_cache.n_pages <= 2 or sched._pending is None:
+        sched.step()
+    decode_many = eng.decode_many
+
+    def spun(*args):
+        block = decode_many(*args)
+        torch.cuda._sleep(int(400e6))
+        return block
+    eng.decode_many = spun
+    sched.step()
+    eng.decode_many = decode_many
+    sched.add_request(system[:12] + [9, 9, 9], max_new=4)
+    reconcile, pending = sched._decode_reconcile, []
+
+    def reconcile_after_staging():
+        torch.cuda.set_sync_debug_mode("default")
+        pending.append(not sched._pending[1].query())
+        return reconcile()
+    sched._decode_reconcile = reconcile_after_staging
+    hits = sched.stats["prefix_hits"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert sched._evict_cache(2) == 2
+        sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sched._decode_reconcile = reconcile
+    assert pending == [True] and sched.stats["prefix_hits"] == hits + 1
+    done = sched.run()
+    assert sorted(len(r.out) for r in done) == [2, 4, 30]
+    eng.alloc.release(sched.prefix_cache.evict(sched.prefix_cache.n_pages))
+    assert eng.pages_in_use == 0 and eng.free_pages == eng.alloc.free_pages
+
+
 def _ints(n_bits, n, seed):
     rng = np.random.default_rng(seed)
     lo = -(1 << (n_bits - 1))

@@ -144,7 +144,8 @@ def test_engine_counts_and_checks():
     before = paged_attention.launches
     te.decode(torch.zeros(4, dtype=torch.int32), torch.from_numpy(MASK))
     assert paged_attention.launches == before    # CPU tensors: no kernel
-    assert PagedEngine.block_ready(torch.zeros(1))
+    assert PagedEngine.block_ready(torch.zeros(1), None)
+    assert PagedEngine.ready_event(torch.zeros(1)) is None
     assert te.placement == ("cpu:0",)
     assert te.alloc.blocks[0].placement == ("cpu:0",)
     assert te.free_pages == 63 - 2 and te.pages_in_use == 2

@@ -79,3 +79,20 @@ def test_windowed_decode_keeps_ring_tail():
                                 jnp.int32(pos))
         tl, tc = tm.decode_step(cfg, tp, tc, torch.tensor([[3]]), pos)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+@pytest.mark.parametrize("with_vision", [False, True])
+def test_prefill_refuses_vision_configs(with_vision):
+    """The reference's ``prefill`` prepends ``vision_embeds`` when
+    ``cfg.n_vis_tokens`` is set; the port has no vision path yet, so it
+    refuses such a config instead of returning text-only logits."""
+    from repro_torch.configs import smoke_config
+    cfg = smoke_config("internvl2-26b")
+    assert cfg.n_vis_tokens
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    if with_vision:
+        batch["vision_embeds"] = torch.zeros((1, cfg.n_vis_tokens,
+                                              cfg.d_model))
+    with pytest.raises(NotImplementedError, match="§ A5b"):
+        tm.prefill(cfg, params, batch, 8)

@@ -279,3 +279,69 @@ def test_split_plan_invariants():
             G, groups = ops.rows_per_block(g, d)
             assert G * groups >= g > G * (groups - 1)
             assert G in ((1, 2, 4) if d <= 128 else (1, 2))
+
+
+def _shared_tables(seq_len, seed=3):
+    """A pool and a page table whose rows share physical pages, as the
+    prefix cache leaves them — rows 0 and 1 name the same pages, row 2 the
+    same pages but a COW copy of the last one, whose tail past the
+    matched 4 tokens holds the row's own K/V — beside a pool and table of
+    private copies of each row's pages.  (pt, kp, vp, private pt, private
+    kp, private vp, q, seq_lens)."""
+    ps, n_kv, g, dh, S = 8, 2, 2, 8, 3
+    n_used = -(-seq_len // ps)
+    width = n_used + 2                      # a row wider than it is used
+    rng = np.random.default_rng(seed)
+    n_pages = 2 + n_used + 3
+    kp = rng.standard_normal((n_pages, ps, n_kv, dh)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, n_kv, dh)).astype(np.float32)
+    base = rng.permutation(np.arange(1, n_pages - 1))[:n_used]
+    cow = n_pages - 1
+    kp[cow, :4], vp[cow, :4] = kp[base[-1], :4], vp[base[-1], :4]
+    pt = np.zeros((S, width), np.int32)
+    pt[:, :n_used] = base
+    pt[2, n_used - 1] = cow
+    # the private pool: every (row, column) its own copy
+    n_priv = 1 + S * n_used
+    pkp = np.zeros((n_priv, ps, n_kv, dh), np.float32)
+    pvp = np.zeros((n_priv, ps, n_kv, dh), np.float32)
+    ppt = np.zeros((S, width), np.int32)
+    for r in range(S):
+        for c in range(n_used):
+            ppt[r, c] = 1 + r * n_used + c
+            pkp[ppt[r, c]], pvp[ppt[r, c]] = kp[pt[r, c]], vp[pt[r, c]]
+    q = (rng.standard_normal((S, n_kv, g, dh)) / np.sqrt(dh)).astype(
+        np.float32)
+    q[1] = q[0]
+    ln = np.full((S,), seq_len, np.int32)
+    return pt, kp, vp, ppt, pkp, pvp, q, ln
+
+
+@pytest.mark.parametrize("seq_len", [19, 256])
+def test_shared_page_tables_match_private_copies(seq_len):
+    """Rows that share physical pages (and one holding a COW copy) give
+    what a table of private copies gives: through both plain twins, and
+    through the numpy model of the kernel's partition with the planned
+    and forced page splits."""
+    pt, kp, vp, ppt, pkp, pvp, q, ln = _shared_tables(seq_len)
+    width = pt.shape[1]
+    shared = [torch.from_numpy(x) for x in (q, kp, vp, pt, ln)]
+    private = [torch.from_numpy(x) for x in (q, pkp, pvp, ppt, ln)]
+    for fn in (paged_attention, batched_paged_attention):
+        got = fn(*shared, width).numpy()
+        want = fn(*private, width).numpy()
+        np.testing.assert_array_equal(got[1], got[0])
+        np.testing.assert_allclose(got, want, **TOL)
+    for r in range(3):
+        one = ref_paged_attention(*[torch.from_numpy(x) for x in (
+            pt[r], ln[r:r + 1], q[r], kp, vp)]).numpy()
+        np.testing.assert_allclose(one, want[r], **TOL)
+        for blocks, warps in itertools.product((1, 2, 3, 8),
+                                               (1, 3, ops.MAX_WARPS)):
+            out, read, _ = _np_kernel(pt[r], seq_len, q[r], kp, vp,
+                                      blocks=blocks, warps=warps)
+            priv, _, _ = _np_kernel(ppt[r], seq_len, q[r], pkp, pvp,
+                                    blocks=blocks, warps=warps)
+            np.testing.assert_array_equal(out, priv)
+            np.testing.assert_allclose(out, want[r], **TOL)
+            assert sorted(read) == list(range(seq_len))

@@ -68,9 +68,8 @@ def test_scheduler_rejects_oversized_requests():
         sched.add_request(list(range(6)), max_new=2)
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=object()),
-                                dict(telemetry=object()),
-                                dict(faults=object()), dict(overlap=True)])
+@pytest.mark.parametrize("kw", [dict(telemetry=object()),
+                                dict(faults=object())])
 def test_unported_scheduler_options_raise(kw):
     cfg, _, tp = bridged("qwen3-0.6b")
     eng = PagedEngine(cfg, tp, n_pages=9, page_size=4, max_seqs=2,
@@ -84,7 +83,7 @@ def test_launcher_serves_smoke_config_on_cpu(capsys):
             "--batch-slots", "2", "--prompt-len", "4", "--decode-horizon",
             "4", "--no-prefix-cache", "--device", "cpu", "--attn-impl",
             "kernel"]
-    finished, engine = serve.main(argv)
+    finished, engine, _ = serve.main(argv)
     assert sorted(r.rid for r in finished) == [0, 1, 2]
     assert engine.device == torch.device("cpu")
     cfg, params = engine.cfg, engine.params
@@ -104,8 +103,11 @@ def test_launcher_flags():
     ap = serve._parser()
     assert ap.parse_args([]).smoke and ap.parse_args([]).device == "cuda"
     assert not ap.parse_args(["--no-smoke"]).smoke
-    with pytest.raises(SystemExit):              # prefix cache not ported
-        serve.main(["--device", "cpu"])
+    # the reference's defaults: the prefix cache on, overlap off
+    args = ap.parse_args([])
+    assert not args.no_prefix_cache and not args.overlap
+    assert args.shared_prefix == 0
+    assert ap.parse_args(["--no-prefix-cache"]).no_prefix_cache
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.main(["--no-prefix-cache"])
