@@ -50,6 +50,21 @@ Phases (any failure exits non-zero and prints no result line):
               on in turns, and one tick's device-busy ms per mode.  It runs after phase 10: run before phase
               7, its profiled ticks left the profiler losing the
               brightness call's launches;
+ 4d. swap   — the host swap tier: the qwen3 serve with 6 requests of 60
+              own tokens + 40 new on 33 pages of 8 with 16-page rows
+              (prefill chunks of 8), three times on the same weights:
+              discard, swap (``--host-swap-pages 64``), swap + overlap.
+              Launches 28 x token steps; the discard serve against the
+              plain greedy decode and the other two serves' tokens equal
+              to it; swap-outs = swap-ins >= 1 with fewer prefill tokens
+              than discard; tier and pool drained, mirror exact.  The host
+              ms of each swap-out and swap-in and the image bytes beside a
+              ``copy_`` of the largest image's bytes to pinned host memory
+              and back; then a ``swap_in`` under
+              ``set_sync_debug_mode("error")`` while a horizon's event is
+              pending, its pages equal to the image; then the device ms
+              of ``restore_block`` and ``snapshot_block`` on a 10-page
+              image beside a ``copy_`` of its bytes.  It runs after 4c;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -110,6 +125,12 @@ Phases (any failure exits non-zero and prints no result line):
               mamba2-1.3b at their published configs and mixtral-8x7b at
               full width cut to 2 layers, each served the same way
               against its plain greedy decode with a sync-free horizon.
+              The swap tier on the mixed stacks: gemma3-12b on phase
+              4d's schedule with a host tier (each image carrying 40 ring
+              layers x 128 frames, charged n_pages + 128; every request
+              against the plain decode), and for recurrentgemma-9b and
+              mamba2-1.3b a request swapped out of slot 0 mid-decode and
+              into slot 1, its tokens against the uninterrupted decode.
               Each model is freed before the next loads.  The phase runs
               last, in a child process (``chip_smoke.py --hetero OUT``):
               before phase 7 it left the profiler losing launches of the
@@ -501,12 +522,14 @@ def _reference_tokens(torch, tm, cfg, params, req, dev):
     return req.max_new, None
 
 
-def phase_serve(torch, pa, card, run, tag="serve"):
+def phase_serve(torch, pa, card, run, tag="serve", n_new=16,
+                reference=True):
     """One serve through a user's entry point: ``run()`` returns
     ``(finished, engine, ...)``.  The kernel's count is set to 0 just before it
     and read just after; it must equal (full + ring layers) x token steps.
-    Every request's tokens are held against the plain model's greedy
-    decode on the card."""
+    Every request's ``n_new`` tokens are held against the plain model's
+    greedy decode on the card (unless ``reference`` is False: a caller
+    that holds this serve's tokens equal to one that was)."""
     from repro_torch.models import model as tm
 
     torch.cuda.reset_peak_memory_stats()
@@ -526,10 +549,10 @@ def phase_serve(torch, pa, card, run, tag="serve"):
     print(f"[{tag}] {cfg.name}: kernel launches {launches} = {n_attn} full "
           f"+ ring layers x {steps} token steps (engine stats "
           f"{engine.stats})")
-    if len(finished) != 6 or any(len(r.out) != 16 for r in finished):
-        _fail(f"[{tag}] expected 6 finished requests of 16 tokens")
+    if len(finished) != 6 or any(len(r.out) != n_new for r in finished):
+        _fail(f"[{tag}] expected 6 finished requests of {n_new} tokens")
     t1 = time.perf_counter()
-    for r in sorted(finished, key=lambda r: r.rid):
+    for r in sorted(finished, key=lambda r: r.rid) if reference else ():
         n, gap = _reference_tokens(torch, tm, cfg, engine.params, r, dev)
         tail = ("" if gap is None else
                 f"; stopped at token {n}: reference top-two gap {gap:.3e} "
@@ -540,7 +563,8 @@ def phase_serve(torch, pa, card, run, tag="serve"):
     print(f"[{tag}] {card}: {cfg.name}: {len(finished)} requests, {n_out} "
           f"tokens in {wall:.3f} s wall ({n_out / wall:.1f} tok/s, params "
           f"init and kernel load included); max_memory_allocated {peak} B; "
-          f"plain reference decode {time.perf_counter() - t1:.1f} s")
+          f"plain reference decode {time.perf_counter() - t1:.1f} s"
+          f"{'' if reference else ' (not run: held to another serve)'}")
     return launches, engine
 
 
@@ -845,6 +869,245 @@ def _overlap_tick(torch, engine, card):
         _fail("[overlap] the timing runs left pages behind")
 
 
+# -- the host swap tier: preemption to host memory, resume by one scatter ---
+#: phase 4d: 6 requests of 60 own tokens + 40 new on 4 slots, a pool of 33
+#: pages of 8 (32 usable) with 16-page rows, horizon 8, prefill chunks of 8:
+#: lifetimes of 13 pages on 4 slots outgrow the pool, so the youngest
+#: running requests are preempted
+SWAP_NEW, SWAP_TIER = 40, 64
+SWAP_ARGV = ["--no-smoke", "--arch", "qwen3-0.6b", "--attn-impl", "kernel",
+             "--requests", "6", "--max-new", str(SWAP_NEW), "--batch-slots",
+             "4", "--prompt-len", "60", "--decode-horizon", "8",
+             "--prefill-chunk", "8", "--n-pages", "33",
+             "--max-pages-per-seq", "16", "--no-prefix-cache", "--device",
+             "cuda"]
+SWAP_MODES = (("discard", []),
+              ("swap", ["--host-swap-pages", str(SWAP_TIER)]),
+              ("swap + overlap", ["--host-swap-pages", str(SWAP_TIER),
+                                  "--overlap"]))
+
+
+class _SwapClock:
+    """While entered, times every ``VBIAllocator.swap_out`` and
+    ``swap_in`` on the host clock, with the image's bytes, pages and tier
+    charge beside each swap-out."""
+
+    def __init__(self):
+        from repro_torch.core.vbi.blocks import VBIAllocator
+        self.alloc_cls = VBIAllocator
+        self.outs, self.ins = [], []
+
+    def __enter__(self):
+        al = self.alloc_cls
+        self.saved = (al.swap_out, al.swap_in)
+        swap_out, swap_in = self.saved
+
+        def timed_out(alloc, blk):
+            t0 = time.perf_counter()
+            ok = swap_out(alloc, blk)
+            if ok:
+                img = alloc.swap.images[blk.bid]
+                self.outs.append(((time.perf_counter() - t0) * 1e3,
+                                  img.k.nbytes + img.v.nbytes + sum(
+                                      a.nbytes for a in img.aux or ()),
+                                  img.n_pages, img.charge))
+            return ok
+
+        def timed_in(alloc, blk, slot, reserve_pages=None):
+            t0 = time.perf_counter()
+            out = swap_in(alloc, blk, slot, reserve_pages)
+            self.ins.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        al.swap_out, al.swap_in = timed_out, timed_in
+        return self
+
+    def __exit__(self, *exc):
+        self.alloc_cls.swap_out, self.alloc_cls.swap_in = self.saved
+
+    def line(self):
+        return (f"swap-outs (host ms, image bytes, pages, charge) "
+                f"{[(round(ms, 3), b, n, c) for ms, b, n, c in self.outs]}; "
+                f"swap-ins host ms {[round(ms, 3) for ms in self.ins]}")
+
+
+def phase_swap(torch, pa, card):
+    """Phase 4d: full-width qwen3-0.6b (random weights from seed 0) served
+    three times on the same schedule — discard, swap (a host tier of 64
+    pages), swap + overlap — launches 28 x token steps, the discard
+    serve's tokens against the plain greedy decode and the other two
+    serves' identical to it, swap-outs = swap-ins >= 1 with fewer prefill
+    tokens than discard, tier and pool drained and the mirror exact; the
+    host ms of each swap-out and swap-in and the image bytes beside a
+    ``copy_`` of the same bytes to pinned host memory and back; then a
+    ``swap_in`` while a horizon's event is pending, under
+    ``set_sync_debug_mode("error")``; then the device ms of the restore
+    and the snapshot of a 10-page image.  Returns kernel launches by
+    serve."""
+    from repro_torch.launch import serve
+
+    launches, outs, stats = {}, {}, {}
+    for mode, extra in SWAP_MODES:
+        box = {}
+
+        def run():
+            box["out"] = serve.main(SWAP_ARGV + extra)
+            return box["out"]
+        t0 = time.perf_counter()
+        with _SwapClock() as clock:
+            launches[mode], engine = phase_serve(
+                torch, pa, card, run, f"swap {mode}", n_new=SWAP_NEW,
+                reference=mode == "discard")
+        finished, sched = box["out"][0], box["out"][2]
+        alloc, st = engine.alloc, sched.stats
+        outs[mode] = {r.rid: r.out for r in finished}
+        stats[mode] = dict(st, token_steps=engine.stats["token_steps"])
+        if engine.free_pages != alloc.free_pages or alloc.pages_in_use != 0:
+            _fail(f"[swap] {mode}: pool not drained or mirror off: device "
+                  f"free {engine.free_pages}, mirror {alloc.free_pages}")
+        if mode == "discard":
+            if st["preemptions"] < 1 or st["swap_outs"] != 0:
+                _fail(f"[swap] discard: preemptions {st['preemptions']}, "
+                      f"swap-outs {st['swap_outs']}")
+        else:
+            a = alloc.stats
+            if not (st["swap_outs"] == st["swap_ins"] == a["swap_outs"]
+                    == a["swap_ins"] >= 1) or alloc.swap.used_pages != 0:
+                _fail(f"[swap] {mode}: swap-outs {st['swap_outs']}, "
+                      f"swap-ins {st['swap_ins']}, tier pages held "
+                      f"{alloc.swap.used_pages}")
+            print(f"[swap] {card}: {mode}: {clock.line()}; bytes out/in "
+                  f"{a['swap_bytes_out']}/{a['swap_bytes_in']}")
+            stats[mode]["outs"] = clock.outs
+        print(f"[swap] {mode}: {stats[mode]['token_steps']} token steps, "
+              f"preemptions {st['preemptions']}, swap-outs "
+              f"{st['swap_outs']}, swap-ins {st['swap_ins']}, prefill "
+              f"tokens {st['prefill_tokens']}, overlap-staged ticks "
+              f"{st['overlap_staged_ticks']}; tier and pool drained, mirror "
+              f"exact ({time.perf_counter() - t0:.1f} s)")
+        if mode != SWAP_MODES[-1][0]:
+            del engine, finished, sched, alloc, box
+            _free(torch)
+    if not outs["discard"] == outs["swap"] == outs["swap + overlap"]:
+        _fail("[swap] the three serves' tokens differ")
+    for mode in ("swap", "swap + overlap"):
+        if not stats[mode]["prefill_tokens"] < stats["discard"][
+                "prefill_tokens"]:
+            _fail(f"[swap] {mode} prefilled {stats[mode]['prefill_tokens']}"
+                  f" tokens, discard {stats['discard']['prefill_tokens']}")
+    if not stats["swap + overlap"]["overlap_staged_ticks"] > 0:
+        _fail("[swap] no tick was staged under a horizon")
+    print(f"[swap] the three serves' tokens identical per request; prefill "
+          f"tokens discard {stats['discard']['prefill_tokens']}, swap "
+          f"{stats['swap']['prefill_tokens']}, swap + overlap "
+          f"{stats['swap + overlap']['prefill_tokens']}")
+    # the yardstick: the largest image's bytes copied device -> pinned host
+    # and back with one copy_ each
+    n_bytes = max(b for _, b, _, _ in stats["swap"]["outs"])
+    dev_buf = torch.ones(n_bytes, dtype=torch.uint8, device=engine.device)
+    host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    d2h = _kernel_ms(torch, lambda: host.copy_(dev_buf, non_blocking=True))
+    h2d = _kernel_ms(torch, lambda: dev_buf.copy_(host, non_blocking=True))
+    print(f"[swap] {card}: yardstick for an image of {n_bytes} B: copy_ "
+          f"device -> pinned host {d2h:.4f} ms, pinned host -> device "
+          f"{h2d:.4f} ms")
+    del dev_buf, host
+    _swap_sync_free(torch, engine)
+    _scatter_probe(torch, engine, card)
+    return launches
+
+
+def _scatter_probe(torch, engine, card):
+    """Device ms of the restore and the snapshot of a 10-page image (the
+    largest of phase 4d) on the drained pool, each queued behind a spin
+    kernel so that the host's enqueue drops out: ``restore_block`` into
+    slot 0 (``free_top`` put back after each call, so every call pops the
+    same pages) and ``snapshot_block``'s gather, beside a contiguous
+    ``copy_`` of the same bytes and the byte bound (the image read once
+    and written once).  The pool's bookkeeping is put back afterwards."""
+    from repro_torch.core.vbi.kvcache import restore_block, snapshot_block
+
+    st, n = engine.state, 10
+    k = torch.ones_like(st.k_pages[:, :n])
+    v = torch.ones_like(k)
+    flat = torch.empty((2,) + tuple(k.shape), device=k.device)
+    both = torch.stack([k, v])
+    saved = {f: getattr(st, f).clone() for f in (
+        "page_table", "seq_lens", "slot_active", "free_top",
+        "page_refcounts")}
+
+    def restore():
+        restore_block(st, 0, k, v, n, n * engine.page_size)
+        st.free_top.add_(n)
+    ms = {"restore_block": _kernel_ms(torch, restore),
+          "snapshot_block": _kernel_ms(
+              torch, lambda: snapshot_block(st, 0, n)),
+          "copy_": _kernel_ms(torch, lambda: flat.copy_(both))}
+    for f, t in saved.items():
+        getattr(st, f).copy_(t)
+    n_bytes = 2 * both.nelement() * both.element_size()
+    print(f"[swap] {card}: a {n}-page image ({n_bytes // 2} B) on the "
+          f"device: {', '.join(f'{k_} {v_:.4f} ms' for k_, v_ in ms.items())}"
+          f" (copy_: a contiguous copy of the same bytes); byte bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return ms
+
+
+def _swap_sync_free(torch, engine):
+    """A block of 20 tokens swapped out of slot 0; a horizon over slot 1
+    with a spin kernel queued behind it, before the event its dispatch
+    would record; then ``swap_in`` into slot 2 with every host sync an
+    error: it returns while the event is pending, and the restored pages
+    equal the image bit for bit."""
+    import numpy as np
+
+    alloc, dev, k, S = engine.alloc, engine.device, 8, engine.max_seqs
+    toks = torch.zeros((S, 20), dtype=torch.int32, device=dev)
+    toks[0] = torch.arange(1, 21, dtype=torch.int32, device=dev)
+    toks[1] = torch.arange(21, 41, dtype=torch.int32, device=dev)
+    blocks = [alloc.alloc(s) for s in (0, 1)]
+    for blk in blocks:
+        alloc.reserve_span(blk, 20, k)
+    engine.prefill_chunk(toks, torch.tensor([20, 20, 0, 0], dtype=torch.int32,
+                                            device=dev))
+    for blk in blocks:
+        alloc.commit(blk, 20)
+        alloc.unreserve(blk, 20)
+    alloc.reserve_span(blocks[1], 20, k)
+    if not alloc.swap_out(blocks[0]):
+        _fail("[swap] sync-free check: swap_out refused")
+    img = alloc.swap.images[blocks[0].bid]
+    mask = torch.arange(S, device=dev) == 1
+    steps = torch.full((S,), k, dtype=torch.int32, device=dev)
+    tok = torch.full((S,), 7, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    block = engine.decode_many(tok, mask, steps, k)
+    torch.cuda._sleep(int(400e6))        # about 0.2 s at 2 GHz
+    event = engine.ready_event(block)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        alloc.swap_in(blocks[0], 2, reserve_pages=alloc.pages_for(20 + k))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pending = not event.query()
+    torch.cuda.synchronize()
+    back = alloc.snapshot_image(blocks[0])
+    if not (pending and np.array_equal(back.k, img.k)
+            and np.array_equal(back.v, img.v)):
+        _fail(f"[swap] swap_in under a pending horizon: event pending at "
+              f"return {pending}, restored pages equal the image "
+              f"{np.array_equal(back.k, img.k)}")
+    for blk in blocks:
+        alloc.free(blk)
+    if alloc.pages_in_use != 0 or engine.free_pages != alloc.free_pages:
+        _fail("[swap] the sync-free check left pages behind")
+    print(f"[sync] swap: swap_in of a {img.n_pages}-page image "
+          f"({img.k.nbytes + img.v.nbytes} B) into slot 2 under "
+          f"set_sync_debug_mode('error') while a horizon's event was "
+          f"pending: no host sync, the event still pending at return, the "
+          f"restored pages equal the image bit for bit")
+
+
 # -- the mixed stacks: ring pool, recurrent state, MoE -----------------------
 #: the ring pool's kernel shapes at the launcher's page size of 8
 #: (configs/*.py): (label, (n_kv, g, d, ps), ring pages = window / 8)
@@ -980,6 +1243,110 @@ def phase_ring_wrap(torch, pa, card, cfg, params):
     return launches
 
 
+#: gemma3's swap serve: each image carries 40 ring layers x 128 frames
+#: (671,088,640 B) and is charged n_pages + 128 tier pages; room for three
+GEMMA_SWAP_TIER = 3 * (16 + 128)
+
+
+def phase_ring_swap(torch, pa, card, cfg, params):
+    """gemma3-12b at its published config on phase 4d's schedule (pool
+    pressure from its 8 full layers' pages) with a host swap tier: every
+    request against the plain greedy decode, launches 48 x token steps,
+    each swap image carrying the ring frames and charged n_pages + 128,
+    tier and pool drained.  Returns the kernel's launches."""
+    from repro_torch.launch import serve
+
+    box = {}
+
+    def run():
+        box["out"] = serve.serve(
+            cfg, params, requests=6, max_new=SWAP_NEW, prompt_len=60,
+            n_pages=33, max_pages_per_seq=16,
+            host_swap_pages=GEMMA_SWAP_TIER, prefix_cache=False,
+            device=params["embed"].device)
+        return box["out"]
+    with _SwapClock() as clock:
+        launches, engine = phase_serve(torch, pa, card, run, "hetero swap",
+                                       n_new=SWAP_NEW)
+    sched, alloc = box["out"][2], engine.alloc
+    ring = engine.geom.ring_pages
+    if (sched.stats["swap_outs"] < 1
+            or sched.stats["swap_outs"] != sched.stats["swap_ins"]
+            or any(c != n + ring for _, _, n, c in clock.outs)
+            or alloc.swap.used_pages != 0 or alloc.pages_in_use != 0
+            or engine.free_pages != alloc.free_pages):
+        _fail(f"[hetero] gemma3 swap: sched stats {dict(sched.stats)}, "
+              f"swap-outs (ms, bytes, pages, charge) {clock.outs}, tier "
+              f"held {alloc.swap.used_pages}")
+    print(f"[hetero] {card}: gemma3-12b swap: preemptions "
+          f"{sched.stats['preemptions']}, swap-outs "
+          f"{sched.stats['swap_outs']}, charge = pages + {ring} ring "
+          f"frames; {clock.line()}; prefill tokens "
+          f"{sched.stats['prefill_tokens']}; tier and pool drained")
+    return launches
+
+
+def phase_swap_across_slots(torch, pa, card, cfg, params):
+    """One request on slot 0 of a 2-slot engine: 4 prompt tokens, 3
+    decode steps, ``swap_out``, ``swap_in`` on slot 1, 3 more steps; the
+    tokens against the same engine's uninterrupted decode.  The kernel's
+    count is read over the swapped run.  Returns it."""
+    from repro_torch.serve.engine import PagedEngine
+
+    dev = params["embed"].device
+    prompt = torch.tensor([[3, 1, 4, 1], [0, 0, 0, 0]], dtype=torch.int32,
+                          device=dev)
+
+    def mk():
+        eng = PagedEngine(cfg, params, n_pages=17, page_size=8, max_seqs=2,
+                          max_pages_per_seq=4, host_swap_pages=400,
+                          device=dev)
+        blk = eng.alloc.alloc(0)
+        first = eng.prefill_chunk(prompt, torch.tensor(
+            [4, 0], dtype=torch.int32, device=dev))
+        eng.alloc.commit(blk, 4)
+        return eng, blk, int(first[0])
+
+    def steps(eng, slot, t, n):
+        out = []
+        for _ in range(n):
+            toks = torch.zeros(2, dtype=torch.int32, device=dev)
+            toks[slot] = t
+            mask = torch.arange(2, device=dev) == slot
+            t = int(eng.decode(toks, mask)[slot, 0].argmax())
+            out.append(t)
+        return out
+
+    eng, _, t0 = mk()
+    ref = [t0] + steps(eng, 0, t0, 6)
+    del eng
+    pa.launches = 0
+    eng, blk, t0 = mk()
+    out = [t0] + steps(eng, 0, t0, 3)
+    eng.alloc.commit(blk, 4 + 3)
+    ms = time.perf_counter()
+    if not eng.alloc.swap_out(blk):
+        _fail(f"[hetero] {cfg.name}: swap_out refused")
+    img = eng.alloc.swap.images[blk.bid]
+    ms = (time.perf_counter() - ms) * 1e3
+    eng.alloc.swap_in(blk, 1)
+    out += steps(eng, 1, out[-1], 3)
+    torch.cuda.synchronize()
+    launches, n_steps = pa.launches, eng.stats["token_steps"]
+    n_attn = eng.geom.n_full + eng.geom.n_ring
+    if out != ref or launches != n_attn * n_steps:
+        _fail(f"[hetero] {cfg.name} swap across slots: tokens {out}, "
+              f"uninterrupted {ref}; launches {launches} != {n_attn} x "
+              f"{n_steps}")
+    nbytes = img.k.nbytes + img.v.nbytes + sum(a.nbytes for a in img.aux)
+    print(f"[hetero] {card}: {cfg.name} swap across slots: swap_out of "
+          f"slot 0 mid-decode ({nbytes} B: ring frames and recurrent rows, "
+          f"charge {img.charge} pages, {ms:.3f} ms host), swap_in on slot "
+          f"1; tokens {out} == the uninterrupted decode; kernel launches "
+          f"{launches} = {n_attn} x {n_steps} token steps")
+    return launches
+
+
 def _free(torch):
     """Give a dropped model's device memory back before the next loads: an
     engine and its allocator refer to each other, so only the cycle
@@ -1087,15 +1454,19 @@ def phase_hetero(torch, F, pa, ops, batched, dev, card):
                 torch, pa, card,
                 lambda: serve.main(HETERO_ARGV + ["--arch", arch]), "hetero")
         phase_sync_free(torch, engine, card)
+        cfg, params = engine.cfg, engine.params
+        del engine
+        _free(torch)
         if arch == "gemma3-12b":
-            cfg, params = engine.cfg, engine.params
-            del engine
-            _free(torch)
             launches["ring wrap"] = phase_ring_wrap(torch, pa, card, cfg,
                                                     params)
-            del params
-        else:
-            del engine
+            _free(torch)
+            launches[f"{arch} swap"] = phase_ring_swap(torch, pa, card, cfg,
+                                                       params)
+        elif arch in ("recurrentgemma-9b", "mamba2-1.3b"):
+            launches[f"{arch} swap across slots"] = phase_swap_across_slots(
+                torch, pa, card, cfg, params)
+        del params
         _free(torch)
         print(f"[hetero] {arch}: {time.perf_counter() - t0:.1f} s")
     return ring_err, ring_rows, launches
@@ -1773,6 +2144,11 @@ def main() -> int:
 
     _free(torch)
     t0 = time.perf_counter()
+    swap_launches = phase_swap(torch, pa, card)
+    print(f"[swap] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
     ring_err, ring_rows, hetero_launches = run_hetero()
     print(f"[hetero] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -1792,6 +2168,8 @@ def main() -> int:
     by_path = {"qwen3-0.6b": launches,
                **{f"qwen3-0.6b prefix {mode}": n
                   for mode, n in prefix_launches.items()},
+               **{f"qwen3-0.6b swap {mode}": n
+                  for mode, n in swap_launches.items()},
                **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -14,17 +14,28 @@ become scatters into a one-row padded scratch copy (an out-of-range index
 is an error in torch and a device-side assert on CUDA).
 
 Nothing here reads device state back to the host, so the decode path
-stays free of synchronisation.
+stays free of synchronisation.  The host swap tier's two halves follow
+that rule too: ``snapshot_block``/``snapshot_aux`` only gather (the
+allocator's blocking copy to the host is the one read), and
+``restore_block``/``restore_aux`` only enqueue scatters, so a swap resume
+can run while a decode horizon is in flight.
+
+The legacy per-sequence state (``PagedKVState``, ``PagedKVManager``) is
+the reference's pre-VBI manager, kept as the oracle of the allocator's
+reservation arithmetic (``blocks.py::LegacyKVAllocator``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple, Union
+import zlib
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
+from .address_space import VBProps
+from .mtl import MTL, PhysicalMemory
 
 
 def make_ring_table(max_seqs: int, ring_pages: int) -> np.ndarray:
@@ -296,6 +307,115 @@ def release_pages(state: PagedServeState, page_ids: torch.Tensor,
     return state
 
 
+# --------------------------------------------------------------------------
+# host swap tier: gather a block's device pages for a host copy and restore
+# them with one scatter (the serve-path form of MTL.swap_out/swap_in; see
+# blocks.py::VBIAllocator)
+# --------------------------------------------------------------------------
+def snapshot_block(state: PagedServeState, slot: int,
+                   n_pages: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather the K/V of ``slot``'s first ``n_pages`` mapped pages (the
+    reference gathers the whole row and slices it on the host): two
+    device tensors of shape [n_layers, n_pages, page_size, n_kv,
+    head_dim].  Enqueues a gather only; the caller copies the result to
+    the host before it releases the slot."""
+    pages = state.page_table[slot, :n_pages].long()
+    return (state.k_pages.index_select(1, pages),
+            state.v_pages.index_select(1, pages))
+
+
+def restore_block(state: PagedServeState, slot: int, k_blk: torch.Tensor,
+                  v_blk: torch.Tensor, n_pages: int,
+                  n_tokens: int) -> PagedServeState:
+    """Swap-in, in place: pop ``n_pages`` pages off the device free stack
+    (``free_stack[free_top - 1 - i]`` for page ``i``), install them as
+    ``slot``'s page-table row and scatter the image's K/V (``k_blk``/
+    ``v_blk`` on the device, [n_layers, >= n_pages, ...]) into them.  The
+    restored pages are private: refcount 1, owned by the slot.
+
+    Enqueues work only: the popped ids never leave the device, and every
+    write is an index op or a fill of a view, so it can run while a decode
+    horizon is in flight."""
+    dev = state.device
+    if n_pages:
+        src = state.free_top - 1 - torch.arange(n_pages, device=dev)
+        pages = state.free_stack.index_select(0, src.long())      # [n]
+        pages_l = pages.long()
+        state.k_pages.index_copy_(
+            1, pages_l, k_blk[:, :n_pages].to(state.k_pages.dtype))
+        state.v_pages.index_copy_(
+            1, pages_l, v_blk[:, :n_pages].to(state.v_pages.dtype))
+        state.page_refcounts.index_fill_(0, pages_l, 1)
+        state.free_top.sub_(n_pages)
+    state.page_table[slot].zero_()
+    if n_pages:
+        state.page_table[slot, :n_pages].copy_(pages)
+    state.seq_lens[slot].fill_(n_tokens)
+    state.slot_active[slot].fill_(True)
+    return state
+
+
+def pad_block_image(k: np.ndarray, v: np.ndarray, n_pages: int,
+                    max_pages: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad a host K/V page image ([n_layers, n_pages, ...]) to a
+    destination pool's row width.  The image's geometry describes itself,
+    so the destination only needs its pages to fit one row: its pool size
+    and slot count may differ from the source's."""
+    if n_pages > max_pages:
+        raise ValueError(f"image holds {n_pages} pages > destination row "
+                         f"width {max_pages}")
+    kp = np.zeros((k.shape[0], max_pages) + k.shape[2:], k.dtype)
+    vp = np.zeros_like(kp)
+    kp[:, :n_pages] = k
+    vp[:, :n_pages] = v
+    return kp, vp
+
+
+def kv_payload_checksum(k: np.ndarray, v: np.ndarray,
+                        aux: Optional[Tuple[np.ndarray, ...]] = None) -> int:
+    """CRC-32 over a block image's device-state payload, chained in a fixed
+    order: K pages, V pages, then each RING/RECURRENT aux array — a pure
+    function of the state ``restore_block``/``restore_aux`` would scatter
+    back (the same digest as the reference's for the same bytes)."""
+    crc = zlib.crc32(np.ascontiguousarray(k).tobytes())
+    crc = zlib.crc32(np.ascontiguousarray(v).tobytes(), crc)
+    for arr in (aux or ()):
+        crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def snapshot_aux(state: PagedServeState, slot: int,
+                 ring_row: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Gather ``slot``'s RING frames (through its static ring row,
+    [ring_pages] int32 on the device) and RECURRENT rows: (k_ring, v_ring,
+    rg_h, rg_conv, ssm_state, ssm_conv), O(window) + O(1) whatever the
+    block's length.  Enqueues gathers only."""
+    row = ring_row.long()
+    return (state.k_ring.index_select(1, row),
+            state.v_ring.index_select(1, row),
+            state.rg_h[:, slot], state.rg_conv[:, slot],
+            state.ssm_state[:, slot], state.ssm_conv[:, slot])
+
+
+def restore_aux(state: PagedServeState, slot: int, ring_row: torch.Tensor,
+                k_ring_blk: torch.Tensor, v_ring_blk: torch.Tensor,
+                rg_h: torch.Tensor, rg_conv: torch.Tensor,
+                ssm_state: torch.Tensor, ssm_conv: torch.Tensor
+                ) -> PagedServeState:
+    """Swap-in of :func:`snapshot_aux`'s arrays (device tensors), in
+    place: the ring frames into ``slot``'s static ring row, the recurrent
+    state into its rows — which may be another slot's than the one they
+    were gathered from.  Index copies and view copies only."""
+    row = ring_row.long()
+    state.k_ring.index_copy_(1, row, k_ring_blk.to(state.k_ring.dtype))
+    state.v_ring.index_copy_(1, row, v_ring_blk.to(state.v_ring.dtype))
+    state.rg_h[:, slot].copy_(rg_h)
+    state.rg_conv[:, slot].copy_(rg_conv)
+    state.ssm_state[:, slot].copy_(ssm_state)
+    state.ssm_conv[:, slot].copy_(ssm_conv)
+    return state
+
+
 def reserve_positions(state: PagedServeState, slot_mask: torch.Tensor,
                       has_full: bool = True
                       ) -> Tuple[PagedServeState, torch.Tensor]:
@@ -385,3 +505,179 @@ def fused_decode_scan(token_step: Callable, state: PagedServeState,
         toks = torch.where(active, nxt, toks)
         left = left - active.to(torch.int32)
     return torch.stack(emitted), state
+
+
+# --------------------------------------------------------------------------
+# the legacy per-sequence KV state and its manager (the pre-VBI MTL): the
+# oracle of the allocator's reservation arithmetic
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class PagedKVState:
+    """k_pages, v_pages [n_layers, n_pages, page_size, n_kv, head_dim];
+    page_table [max_seqs, max_pages_per_seq] int32; seq_lens [max_seqs]
+    int32."""
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    page_table: torch.Tensor
+    seq_lens: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pages.shape[2]
+
+
+def _put_token(pages: torch.Tensor, layers: torch.Tensor,
+               page: torch.Tensor, slot: torch.Tensor,
+               x: torch.Tensor) -> None:
+    """``pages[l, page, slot] = x[i]`` for ``l = layers[i]``, with the
+    page and slot as device scalars (no host read)."""
+    shape = layers.shape
+    pages.index_put_((layers, page.expand(shape), slot.expand(shape)),
+                     x.to(pages.dtype))
+
+
+def append_kv(state: PagedKVState, seq_idx: int, k: torch.Tensor,
+              v: torch.Tensor) -> PagedKVState:
+    """Write one token's K/V ([n_layers, n_kv, head_dim]) for sequence
+    ``seq_idx`` at its current length and bump its length, in place."""
+    ps = state.page_size
+    pos = state.seq_lens[seq_idx].long()
+    page = state.page_table[seq_idx].index_select(0, (pos // ps)[None]).long()
+    layers = torch.arange(state.k_pages.shape[0],
+                          device=state.k_pages.device)
+    _put_token(state.k_pages, layers, page, pos % ps, k)
+    _put_token(state.v_pages, layers, page, pos % ps, v)
+    state.seq_lens[seq_idx].add_(1)
+    return state
+
+
+def _write_layer_kv(state: PagedKVState, seq_idx: int, layer: int,
+                    k: torch.Tensor, v: torch.Tensor) -> PagedKVState:
+    """Write one layer's K/V ([n_kv, head_dim]) at the position the last
+    ``begin_token`` reserved (``seq_lens - 1``), in place."""
+    ps = state.page_size
+    pos = state.seq_lens[seq_idx].long() - 1
+    page = state.page_table[seq_idx].index_select(0, (pos // ps)[None]).long()
+    layers = torch.tensor([layer], device=state.k_pages.device)
+    _put_token(state.k_pages, layers, page, pos % ps, k[None])
+    _put_token(state.v_pages, layers, page, pos % ps, v[None])
+    return state
+
+
+def gather_kv(state: PagedKVState, seq_idx: int, layer: int,
+              max_pages: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One sequence's K/V for one layer: (k, v, valid_mask), k and v of
+    shape [max_pages * page_size, n_kv, head_dim]."""
+    pages = state.page_table[seq_idx, :max_pages].long()
+    k = state.k_pages[layer].index_select(0, pages)
+    v = state.v_pages[layer].index_select(0, pages)
+    n = max_pages * state.page_size
+    k = k.reshape(n, *k.shape[2:])
+    v = v.reshape(n, *v.shape[2:])
+    mask = torch.arange(n, device=k.device) < state.seq_lens[seq_idx]
+    return k, v, mask
+
+
+class PagedKVManager:
+    """The MTL for the KV address space, host policy of the legacy
+    per-sequence path: a host free list, power-of-4 size classes promoted
+    on growth, pages allocated physically as tokens arrive.  ``append`` and
+    ``begin_token`` read the sequence's length from the device."""
+
+    SIZE_CLASS_PAGES = (1, 4, 16, 64, 256, 1024)
+
+    def __init__(self, n_layers: int, n_pages: int, page_size: int,
+                 n_kv: int, head_dim: int, max_seqs: int,
+                 dtype=torch.bfloat16, mtl: Optional[MTL] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        dev = resolve_device(device)
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.max_seqs = max_seqs
+        self.max_pages_per_seq = self.SIZE_CLASS_PAGES[-1]
+        self.free_pages: List[int] = list(range(1, n_pages))  # page 0 null
+        self.seq_class = np.full(max_seqs, -1, np.int32)      # class index
+        self.seq_pages: List[List[int]] = [[] for _ in range(max_seqs)]
+        self.seq_vbid = np.full(max_seqs, -1, np.int64)
+        self.mtl = mtl or MTL(PhysicalMemory(1 << 12))
+        self.stats = {"promotions": 0, "delayed_page_allocs": 0,
+                      "released_pages": 0}
+        shape = (n_layers, n_pages, page_size, n_kv, head_dim)
+        self.state = PagedKVState(
+            k_pages=torch.zeros(shape, dtype=dtype, device=dev),
+            v_pages=torch.zeros(shape, dtype=dtype, device=dev),
+            page_table=torch.zeros((max_seqs, self.max_pages_per_seq),
+                                   dtype=torch.int32, device=dev),
+            seq_lens=torch.zeros((max_seqs,), dtype=torch.int32,
+                                 device=dev))
+
+    # -- VB lifecycle --------------------------------------------------------
+    def new_seq(self, seq_idx: int) -> None:
+        """Enable the sequence's VB in the smallest class; allocates
+        NOTHING (pages arrive on first append)."""
+        if self.seq_class[seq_idx] != -1:
+            raise ValueError(f"slot {seq_idx} is busy")
+        self.seq_class[seq_idx] = 0
+        self.seq_vbid[seq_idx] = self.mtl.enable_vb(0, VBProps.KV_CACHE)
+        self.state.page_table[seq_idx].zero_()
+        self.state.seq_lens[seq_idx].zero_()
+
+    def release_seq(self, seq_idx: int) -> None:
+        """Return the sequence's pages to the free list; a double release
+        is a no-op."""
+        if self.seq_class[seq_idx] == -1:
+            return
+        self.free_pages.extend(self.seq_pages[seq_idx])
+        self.stats["released_pages"] += len(self.seq_pages[seq_idx])
+        self.seq_pages[seq_idx] = []
+        self.seq_class[seq_idx] = -1
+        self.mtl.disable_vb(0, int(self.seq_vbid[seq_idx]))
+        self.seq_vbid[seq_idx] = -1
+
+    def _capacity_pages(self, seq_idx: int) -> int:
+        return self.SIZE_CLASS_PAGES[self.seq_class[seq_idx]]
+
+    def ensure_capacity(self, seq_idx: int, new_len: int) -> None:
+        """Delayed allocation and promotion before ``new_len`` tokens."""
+        need_pages = -(-new_len // self.page_size)
+        while need_pages > self._capacity_pages(seq_idx):
+            self.seq_class[seq_idx] += 1                # promote_vb
+            self.stats["promotions"] += 1
+        have = len(self.seq_pages[seq_idx])
+        while have < need_pages:
+            if not self.free_pages:
+                raise RuntimeError("KV pool exhausted (evict first)")
+            page = self.free_pages.pop()
+            self.state.page_table[seq_idx, have].fill_(page)
+            self.seq_pages[seq_idx].append(page)
+            self.stats["delayed_page_allocs"] += 1
+            have += 1
+
+    # -- the per-token path --------------------------------------------------
+    def append(self, seq_idx: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        cur = int(self.state.seq_lens[seq_idx])
+        self.ensure_capacity(seq_idx, cur + 1)
+        append_kv(self.state, seq_idx, k, v)
+
+    def begin_token(self, seq_idx: int) -> int:
+        """Reserve the next position (delayed page allocation happens here)
+        and return it; ``write_layer`` then fills each layer's K/V."""
+        cur = int(self.state.seq_lens[seq_idx])
+        self.ensure_capacity(seq_idx, cur + 1)
+        self.state.seq_lens[seq_idx].add_(1)
+        return cur
+
+    def write_layer(self, seq_idx: int, layer: int, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+        """k, v [n_kv, head_dim] for the position ``begin_token`` gave."""
+        _write_layer_kv(self.state, seq_idx, layer, k, v)
+
+    def gather(self, seq_idx: int, layer: int,
+               max_pages: Optional[int] = None):
+        mp = max_pages or self._capacity_pages(seq_idx)
+        return gather_kv(self.state, seq_idx, layer, mp)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.n_pages - 1 - len(self.free_pages)

@@ -6,6 +6,9 @@
         --no-smoke --arch qwen3-0.6b --shared-prefix 252 --overlap
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch gemma3-12b --device cpu             # local/global, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --prompt-len 60 --max-new 40 --n-pages 33 --max-pages-per-seq 16 \\
+        --host-swap-pages 64                       # preemption to host swap
 
 Counterpart of ``repro/launch/serve.py``, default (closed-loop) path only:
 ``serve/engine.py`` driven by ``serve/scheduler.py`` — admission, chunked
@@ -17,6 +20,12 @@ off, and it turns itself off for stacks with RING or RECURRENT layers.
 ``--shared-prefix N`` puts one N-token system prompt, drawn from the seed
 before the prompts, in front of every request; ``--overlap`` stages the
 next tick on the host while the device runs the current decode horizon.
+``--host-swap-pages N`` gives the allocator a host swap tier of N pages:
+a preempted request's KV (and ring frames and recurrent rows) is demoted
+to host memory and restored by one device scatter instead of being
+prefilled again; the launcher prints the swap traffic.  ``--n-pages`` and
+``--max-pages-per-seq`` size the pool and a slot's row (by default 32
+pages a slot plus the shared prefix's).
 Every decoder-only arch is served: uniform, local/global and
 sliding-window attention, RG-LRU and Mamba-2 recurrent layers, top-k MoE;
 the launcher prints the stack's geometry (full, ring, RG-LRU and SSM
@@ -31,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -85,6 +95,16 @@ def _parser() -> argparse.ArgumentParser:
                     help="double-buffered dispatch: stage the next tick on "
                          "the host while the device runs the current "
                          "decode horizon (same tokens)")
+    ap.add_argument("--host-swap-pages", type=int, default=0,
+                    help="host swap tier capacity in pages (0 = off); "
+                         "SWAPPABLE preemption victims demote to host "
+                         "memory and resume without re-prefilling")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="KV pool pages, page 0 included (default: 1 + "
+                         "slots x (32 + shared prefix / 8))")
+    ap.add_argument("--max-pages-per-seq", type=int, default=None,
+                    help="pages in one slot's page-table row (default: "
+                         "the pool split evenly over the slots)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
@@ -105,19 +125,26 @@ def main(argv=None):
                  decode_horizon=args.decode_horizon,
                  attn_impl=args.attn_impl,
                  prefix_cache=not args.no_prefix_cache,
-                 overlap=args.overlap, seed=args.seed, device=args.device)
+                 overlap=args.overlap, host_swap_pages=args.host_swap_pages,
+                 n_pages=args.n_pages,
+                 max_pages_per_seq=args.max_pages_per_seq, seed=args.seed,
+                 device=args.device)
 
 
 def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
           batch_slots: int = 4, prefill_chunk: int = 8, prompt_len: int = 4,
           shared_prefix: int = 0, decode_horizon: int = 8,
           attn_impl: str = "kernel", prefix_cache: bool = True,
-          overlap: bool = False, seed: int = 0, device="cuda"):
+          overlap: bool = False, host_swap_pages: int = 0,
+          n_pages: Optional[int] = None,
+          max_pages_per_seq: Optional[int] = None, seed: int = 0,
+          device="cuda"):
     """The launcher's serve on given params (on ``device``): ``requests``
     prompts of ``shared_prefix`` system tokens (drawn first, shared by
     all) and ``prompt_len`` tokens of their own, drawn from ``seed``, each
-    decoding ``max_new`` tokens, through the engine (pages of 8 tokens,
-    ``32 + shared_prefix // 8`` pages a slot) and the scheduler, with the
+    decoding ``max_new`` tokens, through the engine (pages of 8 tokens;
+    ``n_pages`` in the pool, by default ``32 + shared_prefix // 8`` a slot;
+    a host swap tier of ``host_swap_pages``) and the scheduler, with the
     prefix cache unless ``prefix_cache`` is False or the stack cannot
     share pages.  Returns ``(finished_requests, engine, scheduler)``."""
     rng = np.random.default_rng(seed)
@@ -125,10 +152,12 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     prompts = [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
                for _ in range(requests)]
     page_size = 8
+    if n_pages is None:
+        n_pages = 1 + batch_slots * (32 + shared_prefix // page_size)
     engine = PagedEngine(
         cfg, params, page_size=page_size, max_seqs=batch_slots,
-        n_pages=1 + batch_slots * (32 + shared_prefix // page_size),
-        attn_impl=attn_impl, device=device)
+        n_pages=n_pages, max_pages_per_seq=max_pages_per_seq,
+        attn_impl=attn_impl, host_swap_pages=host_swap_pages, device=device)
     geom = engine.geom
     print(f"[serve] {cfg.name} on {engine.device} — attn_impl={attn_impl}; "
           f"geometry: n_full {geom.n_full}, n_ring {geom.n_ring}, n_rg "
@@ -156,6 +185,15 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     if cache is not None:
         print(f"[serve] prefix cache: hit_rate={cache.hit_rate:.2f} "
               f"stats {cache.stats}")
+    if engine.alloc.swap is not None:
+        a = engine.alloc.stats
+        print(f"[serve] host swap tier: {engine.alloc.swap.capacity_pages} "
+              f"pages; preemptions {sched.stats['preemptions']}, swap-outs "
+              f"{a['swap_outs']} ({a['swapped_out_pages']} pages, "
+              f"{a['swap_bytes_out']} B), swap-ins {a['swap_ins']} "
+              f"({a['swapped_in_pages']} pages, {a['swap_bytes_in']} B), "
+              f"rejects {a['swap_rejects']}; prefill tokens "
+              f"{sched.stats['prefill_tokens']}")
     print(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
           f"{dt:.3f}s on {engine.device} ({n_out / dt:.1f} tok/s)")
     return finished, engine, sched

@@ -301,7 +301,8 @@ class PagedEngine:
     The engine is compute only: all page lifecycle goes through
     ``self.alloc`` (:class:`~repro_torch.core.vbi.blocks.VBIAllocator`);
     policy lives in ``serve/scheduler.py``.  ``params`` must already live
-    on ``device``."""
+    on ``device``; ``host_swap_pages > 0`` gives the allocator a host swap
+    tier of that many pages."""
 
     def __init__(self, cfg: ModelConfig, params, n_pages: int = 256,
                  page_size: int = 16, max_seqs: int = 8,
@@ -379,8 +380,16 @@ class PagedEngine:
 
     @property
     def aux_swap_pages(self) -> int:
+        """Host-tier charge (in pages) of one slot's RING + RECURRENT state
+        (``kvcache.py::aux_swap_charge``)."""
         return aux_swap_charge(self.geom.n_ring, self.geom.ring_pages,
                                self.geom.n_recurrent)
+
+    def ring_row(self, slot: int) -> torch.Tensor:
+        """``slot``'s static ring frames: a view of a row of
+        ``self.ring_table`` on the device (what the swap tier's gather and
+        scatter of ring frames translate through)."""
+        return self.ring_table[slot]
 
     # -- the fast paths ------------------------------------------------------
     def decode(self, tokens: torch.Tensor,

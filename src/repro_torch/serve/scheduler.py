@@ -36,11 +36,15 @@ Policies:
     only refcount-zero pages, so cached prompt pages survive.  Cold cached
     prefixes are evicted LRU when admission or decode needs pages;
   * **preemption** — if a decode horizon cannot be covered even at K=1,
-    the youngest running non-PINNED request is preempted: its fed prefix
-    is offered to the prefix cache, its pages are discarded and it
-    re-enters the queue head with its generated tokens, to be restored
-    from the cache and re-prefilled on re-admission (greedy decode makes
-    this exact).  There is no host swap tier yet (ROADMAP.md § A6);
+    the youngest running non-PINNED request is preempted and re-enters
+    the queue head with its generated tokens.  The victim's declared
+    properties pick the placement: a SWAPPABLE block whose full-span
+    restore budget fits the pool is demoted to the allocator's host swap
+    tier and re-admitted, into any free slot, by ``swap_in`` — one device
+    scatter restores its exact KV (and ring frames and recurrent rows),
+    with no re-prefill.  Otherwise its fed prefix is offered to the prefix
+    cache and its pages are discarded, to be restored from the cache and
+    re-prefilled on re-admission (greedy decode makes both exact);
   * **double-buffered dispatch** (``overlap=True``) — the horizon-N token
     block is left in flight at the end of the tick and read at the start
     of the next, after admission (slot and span reservation, prefix-cache
@@ -109,6 +113,9 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     preemptions: int = 0
+    # a block demoted to the host swap tier at preemption rides along here
+    # and is restored (swap_in) at re-admission
+    block: Optional[VirtualBlock] = None
 
     @property
     def tokens(self) -> List[int]:
@@ -177,7 +184,8 @@ class Scheduler:
         self._pending: Optional[tuple] = None
         self.stats = {k: 0 for k in (
             "preemptions", "steps", "prefix_hits", "prefix_tokens_reused",
-            "cache_evicted_pages", "prefill_tokens", "host_syncs",
+            "cache_evicted_pages", "swap_outs", "swap_ins",
+            "prefill_tokens", "host_syncs",
             "prefill_host_reads", "prefill_reads_skipped",
             "horizon_truncations", "overlap_staged_ticks",
             "sync_device_ready", "sync_device_wait")}
@@ -266,6 +274,10 @@ class Scheduler:
                       if s not in self.slots]
         while self.queue and free_slots:
             req = self.queue[0]
+            if req.block is not None:
+                if not self._admit_swapped(req, free_slots):
+                    break
+                continue
             match: Optional[PrefixMatch] = None
             if self.prefix_cache is not None:
                 match = self.prefix_cache.lookup(req.tokens)
@@ -310,6 +322,27 @@ class Scheduler:
                 st.pinned.extend(match.all_nodes())
             self.slots[slot] = st
 
+    def _admit_swapped(self, req: Request, free_slots: List[int]) -> bool:
+        """Re-admit a host-swapped request: budget its full span (with the
+        decode horizon's headroom if it fits), then restore its exact KV
+        into the first free slot with one device scatter (no re-prefill).
+        The tokens past the restored span (the prompt's unfed rest, or the
+        last output token) go through the prefill path.  Enqueues device
+        work only, so it can run under the overlap's in-flight horizon."""
+        budget = self._degraded_budget(req)
+        if budget > self.alloc.free_pages:
+            return False
+        self.queue.popleft()
+        slot = free_slots.pop(0)
+        blk, req.block = req.block, None
+        self.alloc.swap_in(blk, slot, reserve_pages=budget)
+        self.slots[slot] = _SlotState(req, blk, prefill_len=len(req.tokens),
+                                      fed=blk.n_tokens,
+                                      admit_seq=self._admit_seq)
+        self._admit_seq += 1
+        self.stats["swap_ins"] += 1
+        return True
+
     def _evict(self, slot: int) -> None:
         st = self.slots.pop(slot)
         self._unpin(st)
@@ -318,17 +351,28 @@ class Scheduler:
 
     def _preempt_one(self) -> bool:
         """Release the youngest running non-PINNED slot back to the queue
-        head: its fed prefix is offered to the prefix cache and its pages
-        are discarded; re-admission restores from the cache and
-        re-prefills the rest."""
+        head.  Its declared properties pick the placement: a SWAPPABLE
+        block is demoted to the host tier (exact restore later); otherwise,
+        or when the tier refuses it, the fed prefix is offered to the
+        prefix cache and the pages are discarded."""
         victims = [s for s, st in self.slots.items() if not st.block.pinned]
         if not victims:
             return False
         slot = max(victims, key=lambda s: self.slots[s].admit_seq)
         st = self.slots.pop(slot)
-        self._cache_insert(st)
-        self._unpin(st)
-        self.alloc.free(st.block)
+        # swap only if the full-span restore budget can ever fit the pool:
+        # a swap image re-admits without the shared-page discount, so a
+        # block admitted mostly through the cache could otherwise wait in
+        # the queue forever; the discard path keeps the discount
+        if (self._budget_for(st.req) <= self.engine.n_pages - 1
+                and self.alloc.swap_out(st.block)):
+            self._unpin(st)
+            st.req.block = st.block
+            self.stats["swap_outs"] += 1
+        else:
+            self._cache_insert(st)
+            self._unpin(st)
+            self.alloc.free(st.block)
         st.req.preemptions += 1
         self.queue.appendleft(st.req)    # keeps its generated prefix
         self.stats["preemptions"] += 1

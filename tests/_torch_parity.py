@@ -9,7 +9,7 @@ import numpy as np
 
 from repro.launch.serve import serve_config
 from repro.models import model as jm
-from repro_torch.core.vbi.kvcache import init_serve_state
+from repro_torch.core.vbi.blocks import PagePool
 from repro_torch.models import model as tm
 
 
@@ -41,15 +41,9 @@ def jax_greedy(cfg, params, prompt, max_new):
     return out
 
 
-class Pool:
-    """The engine's pool protocol without a model: a one-layer CPU state
-    and its geometry, for driving a ``VBIAllocator`` alone."""
-
-    def __init__(self, n_pages, page_size, max_seqs, max_pages):
-        self.n_pages, self.page_size = n_pages, page_size
-        self.max_seqs, self.max_pages = max_seqs, max_pages
-        self.placement = ("cpu:0",)
-        self.state = init_serve_state(
-            n_layers=1, n_pages=n_pages, page_size=page_size, n_kv=1,
-            head_dim=2, max_seqs=max_seqs, max_pages_per_seq=max_pages,
-            device="cpu")
+def Pool(n_pages, page_size, max_seqs, max_pages):
+    """The engine's pool protocol without a model: a one-layer CPU
+    ``PagePool``, for driving a ``VBIAllocator`` alone."""
+    return PagePool(n_layers=1, n_pages=n_pages, page_size=page_size,
+                    n_kv=1, head_dim=2, max_seqs=max_seqs,
+                    max_pages_per_seq=max_pages, device="cpu")

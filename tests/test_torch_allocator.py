@@ -8,14 +8,15 @@ import torch
 from _torch_parity import Pool
 from repro.core.vbi.blocks import PagePool, VBIAllocator as JAlloc
 from repro_torch.core.vbi.address_space import VBProps
-from repro_torch.core.vbi.blocks import DEFAULT_BLOCK_PROPS, VBIAllocator
+from repro_torch.core.vbi.blocks import (DEFAULT_BLOCK_PROPS, HostSwapTier,
+                                         VBIAllocator)
 
 
-def _pair():
+def _pair(swap=0):
     geo = dict(n_pages=17, page_size=4, max_seqs=3)
     jal = JAlloc(PagePool(n_layers=1, n_kv=1, head_dim=2,
-                          max_pages_per_seq=8, **geo))
-    tal = VBIAllocator(Pool(max_pages=8, **geo))
+                          max_pages_per_seq=8, **geo), host_swap_pages=swap)
+    tal = VBIAllocator(Pool(max_pages=8, **geo), host_swap_pages=swap)
     return jal, tal
 
 
@@ -31,12 +32,35 @@ def _same(jal, tal, jb, tb):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_lifecycle_matches_reference(seed):
+    """Random alloc / reserve / span + commit / unreserve / free, and swap
+    out to and back in from a host tier of 8 pages (into any free slot),
+    on both allocators: the same mirror, block fields, device page table,
+    free stack and refcounts after every op."""
     rng = np.random.default_rng(seed)
-    jal, tal = _pair()
-    live = {}
+    jal, tal = _pair(swap=8)
+    live, swapped = {}, []
     for _ in range(30):
-        op = rng.choice(["alloc", "reserve", "span", "unreserve", "free"])
-        if op == "alloc" and len(live) < 3:
+        op = rng.choice(["alloc", "reserve", "span", "unreserve", "free",
+                         "swap_out", "swap_in"])
+        if op == "swap_in" and swapped and len(live) < 3:
+            jb, tb = swapped[int(rng.integers(len(swapped)))]
+            s = int(rng.choice([x for x in range(3) if x not in live]))
+            if jal.pages_for(jb.n_tokens) <= jal.free_pages:
+                jal.swap_in(jb, s)
+                tal.swap_in(tb, s)
+                swapped.remove((jb, tb))
+                live[s] = (jb, tb)
+                _same(jal, tal, jb, tb)
+        elif op == "swap_out" and live:
+            s = int(rng.choice(sorted(live)))
+            jb, tb = live[s]
+            ok = jal.swap_out(jb)
+            assert tal.swap_out(tb) == ok
+            if ok:
+                swapped.append(live.pop(s))
+            _same(jal, tal, jb, tb)
+            assert tal.swap.used_pages == jal.swap.used_pages
+        elif op == "alloc" and len(live) < 3:
             s = int(rng.choice([x for x in range(3) if x not in live]))
             live[s] = (jal.alloc(s), tal.alloc(s))
         elif live:
@@ -62,8 +86,10 @@ def test_lifecycle_matches_reference(seed):
                 tal.free(tb)                     # double free: a no-op
                 del live[s]
             _same(jal, tal, jb, tb)
-    assert tal.stats["allocs"] == jal.stats["allocs"]
-    assert tal.stats["frees"] == jal.stats["frees"]
+    for f in ("page_table", "seq_lens", "free_stack", "page_refcounts"):
+        np.testing.assert_array_equal(getattr(tal.pool.state, f).numpy(),
+                                      np.asarray(getattr(jal.pool.state, f)))
+    assert tal.stats == jal.stats
 
 
 def test_blocks_are_placed_and_typed():
@@ -82,8 +108,13 @@ def test_oversubscription_and_unported_parts_raise():
     blk = tal.alloc(0)
     with pytest.raises(RuntimeError, match="oversubscribed"):
         tal.reserve_pages(blk, 17)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        VBIAllocator(tal.pool, host_swap_pages=4)
-    assert not hasattr(tal, "swap_out") and hasattr(tal, "map_shared")
+    # the host swap tier is built on request; without one, swap_out
+    # declines and the caller discards
+    assert tal.swap is None and not tal.swap_out(blk)
+    swapping = VBIAllocator(tal.pool, host_swap_pages=4)
+    assert swapping.swap.capacity_pages == 4 and swapping.swap.used_pages == 0
+    assert hasattr(tal, "swap_in") and hasattr(tal, "map_shared")
+    with pytest.raises(ValueError, match="capacity"):
+        HostSwapTier(0)
     assert torch.equal(tal.pool.state.slot_active,
                        torch.tensor([True, False, False]))

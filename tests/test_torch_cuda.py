@@ -30,6 +30,13 @@ runs on a machine without JAX:
     the overlap's staged half (cache eviction, admission with a hit,
     prefill staging) runs under ``set_sync_debug_mode("error")`` while a
     decode horizon's event is pending;
+  * the host swap tier on the card: a block's pages, ring frames and
+    recurrent rows round-trip ``swap_out``/``swap_in`` (into another slot)
+    bit-exact, with the same image checksum; ``swap_in`` (``restore_block``
+    and ``restore_aux`` behind pinned staging) runs under
+    ``set_sync_debug_mode("error")`` while earlier work is still running
+    on the card and never waits for it; the kernel on the restored row and
+    ring row is bit-equal to the kernel on the original ones;
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
     their plain versions (ragged tails, both styles, every block size, 1,
     2 and 4 words per thread, div at 32 bits in blocks of 1,024); the
@@ -60,6 +67,8 @@ from repro_torch.kernels import bitplane_transpose as tt
 from repro_torch.kernels.bitserial_matmul import ops as bs
 from repro_torch.kernels.bitserial_matmul import ref as bs_ref
 from repro_torch.kernels.paged_attention import ops, paged_attention
+from repro_torch.core.vbi import kvcache as tk
+from repro_torch.core.vbi.blocks import PagePool, VBIAllocator
 from repro_torch.core.vbi.kvcache import make_ring_table
 from repro_torch.kernels.simdram_vm import ops as vm
 from repro_torch.launch import serve as launch_serve
@@ -456,6 +465,96 @@ def test_prefix_staged_half_is_sync_free(dev):
     assert sorted(len(r.out) for r in done) == [2, 4, 30]
     eng.alloc.release(sched.prefix_cache.evict(sched.prefix_cache.n_pages))
     assert eng.pages_in_use == 0 and eng.free_pages == eng.alloc.free_pages
+
+
+def _swap_pool(dev, seed=0):
+    """A pool with two full, two ring (3 frames) and one RG-LRU layer on
+    the card, its payload seeded, a host tier of 64 pages, and one block
+    of 13 tokens (4 pages of 4) on slot 0."""
+    pool = PagePool(n_layers=2, n_pages=33, page_size=4, n_kv=2, head_dim=8,
+                    max_seqs=4, max_pages_per_seq=8, ring_layers=2,
+                    ring_pages=3, rg_layers=1, rnn_width=16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name in ("k_pages", "v_pages", "k_ring", "v_ring", "rg_h",
+                 "rg_conv"):
+        t = getattr(pool.state, name)
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    al = VBIAllocator(pool, host_swap_pages=64)
+    blk = al.alloc(0)
+    for n in range(13):
+        al.reserve(blk, n + 1)
+        tk.reserve_positions(pool.state, torch.arange(4, device=dev) == 0)
+        al.commit(blk, n + 1)
+    return pool, al, blk
+
+
+def _same_payload(a, b):
+    np.testing.assert_array_equal(a.k, b.k)
+    np.testing.assert_array_equal(a.v, b.v)
+    for x, y in zip(a.aux, b.aux):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_swap_round_trip_is_bit_exact(dev):
+    pool, al, blk = _swap_pool(dev)
+    snap = al.snapshot_image(blk)
+    assert al.swap_out(blk) and al.pages_in_use == 0
+    _same_payload(al.swap.images[blk.bid], snap)
+    al.swap_in(blk, 2)
+    back = al.snapshot_image(blk)
+    _same_payload(back, snap)
+    assert back.checksum == snap.checksum and back.n_pages == 4
+    assert torch.equal(pool.state.rg_h[:, 2].cpu(),
+                       torch.from_numpy(snap.aux[2]))
+    al.free(blk)
+    assert al.pages_in_use == 0 and al.swap.used_pages == 0
+    assert al.free_pages == pool.n_pages - 1
+
+
+def test_swap_in_is_sync_free_under_pending_work(dev):
+    """``swap_in`` stages the image through fresh pinned buffers and
+    enqueues ``restore_block`` and ``restore_aux``: no host sync, and the
+    event behind a 0.2 s spin (a horizon in flight) is still pending when
+    it returns."""
+    pool, al, blk = _swap_pool(dev)
+    assert al.swap_out(blk)
+    img = al.swap.images[blk.bid]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(400e6))
+    ev = torch.cuda.Event()
+    ev.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        al.swap_in(blk, 3, reserve_pages=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not ev.query()
+    torch.cuda.synchronize()
+    _same_payload(al.snapshot_image(blk), img)
+    assert al.free_pages == pool.n_pages - 1 - 6
+
+
+def test_kernel_on_restored_rows_equals_original(dev):
+    pool, al, blk = _swap_pool(dev, seed=1)
+    st = pool.state
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((4, 2, 2, 8), generator=gen, device=dev)
+
+    def attend(q):
+        ring_lens = torch.clamp(st.seq_lens, max=12)
+        return (paged_attention(q, st.k_pages[1], st.v_pages[1],
+                                st.page_table, st.seq_lens, 8),
+                paged_attention(q, st.k_ring[0], st.v_ring[0],
+                                pool.ring_table, ring_lens, 3))
+
+    before = attend(q)
+    assert al.swap_out(blk)
+    al.swap_in(blk, 2)
+    q2 = q.clone()
+    q2[2] = q[0]
+    after = attend(q2)
+    for a, b in zip(before, after):
+        assert torch.equal(a[0], b[2]) and a[0].abs().max() > 0
 
 
 def _ints(n_bits, n, seed):

@@ -132,8 +132,10 @@ def test_engine_counts_and_checks():
     cfg, _, tp = bridged("qwen3-0.6b")
     with pytest.raises(ValueError, match="attn_impl"):
         PagedEngine(cfg, tp, attn_impl="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PagedEngine(cfg, tp, host_swap_pages=4, device="cpu")
+    swapping = PagedEngine(cfg, tp, host_swap_pages=4, device="cpu")
+    assert swapping.alloc.swap.capacity_pages == 4
+    assert callable(swapping.alloc.swap_out) and swapping.aux_swap_pages == 0
+    assert swapping.ring_row(1).tolist() == [0]   # no ring layers
     meta = dict(tp, embed=tp["embed"].to("meta"))
     with pytest.raises(ValueError, match="params live on"):
         PagedEngine(cfg, meta, device="cpu")

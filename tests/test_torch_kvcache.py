@@ -1,5 +1,6 @@
 """``repro_torch/core/vbi/kvcache.py`` against ``repro/core/vbi/
-kvcache.py``: one random sequence of admit / release / reserve+write ops,
+kvcache.py``: one random sequence of admit / release / reserve+write /
+host-swap (gather, release, restore into any free slot) ops,
 driven with the same numpy inputs on both, leaves every field of the
 state equal after every op — exactly, since these are integer ops and
 copies.  Page 0's payload is excluded: masked-out slots all write into
@@ -58,7 +59,8 @@ def test_random_op_sequence_matches_reference(seed):
     lens = np.zeros(S, int)
     free = n_pages - 1                    # host mirror of the free stack
     for step in range(40):
-        op = rng.choice(["admit", "release", "token", "token", "token"])
+        op = rng.choice(["admit", "release", "token", "token", "token",
+                         "swap"])
         if op == "admit" and len(active) < S:
             s = int(rng.choice([x for x in range(S) if x not in active]))
             js = jk.admit_slot(js, jnp.int32(s))
@@ -72,7 +74,27 @@ def test_random_op_sequence_matches_reference(seed):
             active.discard(s)
             free += -(-lens[s] // ps)
             lens[s] = 0
-        else:
+        elif op == "swap" and active:
+            # host swap of one slot: gather its pages, release them,
+            # restore them (one scatter) into any free slot
+            s = int(rng.choice(sorted(active)))
+            n = -(-int(lens[s]) // ps)
+            k, v = (t.numpy().copy() for t in tk.snapshot_block(ts, s, n))
+            jkb, jvb = jk.snapshot_block(js, jnp.int32(s))
+            np.testing.assert_array_equal(k, np.asarray(jkb)[:, :n])
+            js = jk.release_slot(js, jnp.int32(s))
+            tk.release_slot(ts, s)
+            active.discard(s)
+            d = int(rng.choice([x for x in range(S) if x not in active]))
+            kp, vp = jk.pad_block_image(k, v, n, P)
+            js = jk.restore_block(js, jnp.int32(d), jnp.asarray(kp),
+                                  jnp.asarray(vp), jnp.int32(n),
+                                  jnp.int32(lens[s]))
+            tk.restore_block(ts, d, torch.from_numpy(k), torch.from_numpy(v),
+                             n, int(lens[s]))
+            active.add(d)
+            lens[s], lens[d] = 0, lens[s]
+        elif op != "swap":
             cand = [s for s in sorted(active) if lens[s] < P * ps]
             mask = np.zeros(S, bool)
             for s in cand:
