@@ -65,6 +65,24 @@ Phases (any failure exits non-zero and prints no result line):
               pending, its pages equal to the image; then the device ms
               of ``restore_block`` and ``snapshot_block`` on a 10-page
               image beside a ``copy_`` of its bytes.  It runs after 4c;
+ 4e. traffic — open-loop traffic and telemetry on the qwen3 serve's
+              weights (4 slots, pages of 8, 129 pages, horizon 8, prefill
+              chunks of 8, the prefix cache on): ``make_trace`` of 16
+              requests at 2/s, seed 0, poisson and bursty.  Each trace
+              replayed open-loop on the virtual clock equals its closed-
+              loop run and the plain greedy decode, launches 28 x token
+              steps, pool drained; then the launcher's wall-clock path
+              (``--traffic P --trace OUT --metrics --overlap``): its trace
+              passes the checker, 16 arrive and finish, all six tick
+              spans, tokens as before; TTFT and TPOT p50/p99, throughput,
+              goodput at TTFT <= 1 s and TPOT <= 100 ms, the trace's
+              events and bytes.  A decode tick's host ms traced and
+              untraced in turns; an arrival, a gauge sample and the
+              overlap's staged half traced under
+              ``set_sync_debug_mode("error")`` with a horizon pending;
+              phase 4d's schedule traced with swap and with discard: the
+              checker passes, tokens equal phase 4d's, and each preempted
+              request's TTFT and time from preemption to its next token;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -1014,7 +1032,7 @@ def phase_swap(torch, pa, card):
     del dev_buf, host
     _swap_sync_free(torch, engine)
     _scatter_probe(torch, engine, card)
-    return launches
+    return launches, outs["discard"]
 
 
 def _scatter_probe(torch, engine, card):
@@ -1106,6 +1124,383 @@ def _swap_sync_free(torch, engine):
           f"set_sync_debug_mode('error') while a horizon's event was "
           f"pending: no host sync, the event still pending at return, the "
           f"restored pages equal the image bit for bit")
+
+
+# -- open-loop traffic and telemetry ------------------------------------------
+#: phase 4e: full-width qwen3-0.6b (params from seed 0, as phase 4's) on 4
+#: slots, pages of 8, 129 pages, horizon 8, prefill chunks of 8, the prefix
+#: cache on (the launcher's default); 16 requests of the seeded mixed
+#: workload (chat, RAG with a 16-token shared system prompt, agent,
+#: summarization), unclipped, at 2 requests/s
+TRAFFIC_N, TRAFFIC_RATE = 16, 2.0
+TRAFFIC_PROCESSES = ("poisson", "bursty")
+#: the SLO goodput is stated at: a chat-like first token within 1 s and
+#: 100 ms per output token after it
+SLO_TTFT, SLO_TPOT = 1.0, 0.1
+TRAFFIC_ARGV = ["--no-smoke", "--arch", "qwen3-0.6b", "--attn-impl", "kernel",
+                "--requests", str(TRAFFIC_N), "--rate", str(TRAFFIC_RATE),
+                "--batch-slots", "4", "--decode-horizon", "8",
+                "--prefill-chunk", "8", "--slo-ttft", str(SLO_TTFT),
+                "--slo-tpot", str(SLO_TPOT), "--metrics", "--overlap",
+                "--device", "cuda"]
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "traffic"
+SPANS = {"tick.admit", "tick.prefill_stage", "tick.prefill_launch",
+         "tick.prefill_finish", "tick.decode_dispatch",
+         "tick.decode_reconcile"}
+
+
+class _DriverSpy:
+    """While entered, keeps every ``TrafficDriver`` whose ``run`` is
+    called (the launcher's, to read its latency accountant)."""
+
+    def __init__(self):
+        from repro_torch.serve.traffic import TrafficDriver
+        self.cls, self.drivers = TrafficDriver, []
+
+    def __enter__(self):
+        run = self.saved = self.cls.run
+        drivers = self.drivers
+
+        def spied(drv, *args, **kw):
+            drivers.append(drv)
+            return run(drv, *args, **kw)
+        self.cls.run = spied
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.saved
+
+
+def _traffic_engine(engine_cls, cfg, params, dev, **kw):
+    return engine_cls(cfg, params, page_size=8, max_seqs=4, n_pages=129,
+                      attn_impl="kernel", device=dev, **kw)
+
+
+def _drained(torch, engine, sched, tag):
+    """Drop the prefix cache's pages; the pool must then be empty and the
+    host mirror equal to the device's free count."""
+    cache = sched.prefix_cache
+    if cache is not None:
+        engine.alloc.release(cache.evict(cache.n_pages))
+    if engine.alloc.pages_in_use != 0 or \
+            engine.free_pages != engine.alloc.free_pages:
+        _fail(f"[traffic] {tag}: pool not drained or mirror off")
+
+
+def _check_launches(n, engine, tag):
+    """The kernel's count over one serve must equal (full + ring layers,
+    28) x the serve's token steps; returns the token steps."""
+    steps = engine.stats["token_steps"]
+    n_attn = engine.geom.n_full + engine.geom.n_ring
+    if n != n_attn * steps or n == 0:
+        _fail(f"[traffic] {tag}: kernel launches {n} != {n_attn} x {steps} "
+              f"token steps")
+    return steps
+
+
+def _counted(pa, engine, tag, run):
+    """``run()`` with the kernel's count set to 0 just before it and
+    checked just after."""
+    pa.launches = 0
+    out = run()
+    return out, pa.launches, _check_launches(pa.launches, engine, tag)
+
+
+def phase_traffic(torch, pa, card, dev, swap_outs):
+    """Phase 4e: open-loop traffic and telemetry on full-width qwen3-0.6b.
+    (1) each trace (poisson, bursty) replayed open-loop on the virtual
+    clock equals its closed-loop run and the plain greedy decode, with
+    launches 28 x token steps and the pool drained; (2) the launcher's
+    wall-clock path with ``--traffic P --trace OUT --metrics --overlap``:
+    its trace passes the checker with every request arrived and finished
+    and all six tick spans, its tokens equal (1)'s; TTFT and TPOT p50 and
+    p99, throughput and goodput at the stated SLO, the trace's events and
+    bytes; then a decode tick's host ms traced and untraced; (3) the
+    overlap's staged half with tracing on under
+    ``set_sync_debug_mode("error")``; (4) phase 4d's schedule traced, swap
+    and discard: the checker passes, the tokens equal phase 4d's, and
+    each preempted request's TTFT and time from preemption to its next
+    token.  Returns kernel launches by serve."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as tm
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.telemetry import check_trace, read_jsonl
+    from repro_torch.serve.traffic import (TrafficDriver, VirtualClock,
+                                           make_trace)
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = serve.serve_config("qwen3-0.6b", smoke=False)
+    params = init_params(cfg, seed=0, device=dev)
+    launches = {}
+    for proc in TRAFFIC_PROCESSES:
+        t0 = time.perf_counter()
+        trace = make_trace(cfg.vocab, TRAFFIC_N, rate=TRAFFIC_RATE, seed=0,
+                           process=proc)
+        outs, steps = {}, {}
+        for mode in ("closed loop", "open loop, virtual clock"):
+            engine = _traffic_engine(PagedEngine, cfg, params, dev)
+            sched = Scheduler(engine, prefill_chunk=8, decode_horizon=8,
+                              prefix_cache=PrefixCache(8),
+                              overlap=mode != "closed loop")
+
+            def run():
+                if mode == "closed loop":
+                    for tr in trace:
+                        sched.add_request(tr.prompt, tr.max_new, rid=tr.rid)
+                    return sched.run()
+                return TrafficDriver(sched, trace, clock=VirtualClock()).run()
+            fin, launches[f"{proc} {mode}"], steps[mode] = _counted(
+                pa, engine, f"{proc} {mode}", run)
+            outs[mode] = {r.rid: r.out for r in fin}
+            if sorted(outs[mode]) != list(range(TRAFFIC_N)) or any(
+                    len(outs[mode][tr.rid]) != tr.max_new for tr in trace):
+                _fail(f"[traffic] {proc} {mode}: requests unfinished")
+            _drained(torch, engine, sched, f"{proc} {mode}")
+            if mode != "closed loop":
+                continue
+            for r in sorted(fin, key=lambda r: r.rid):
+                n, gap = _reference_tokens(torch, tm, cfg, params, r, dev)
+                if gap is not None:
+                    print(f"[traffic] {proc} req {r.rid}: {n}/{len(r.out)} "
+                          f"tokens equal to the plain greedy reference, "
+                          f"stopped at a top-two gap {gap:.3e}")
+        if outs["closed loop"] != outs["open loop, virtual clock"]:
+            _fail(f"[traffic] {proc}: open loop != closed loop")
+        mix = {}
+        for tr in trace:
+            mix[tr.profile] = mix.get(tr.profile, 0) + 1
+        print(f"[traffic] {proc}: {TRAFFIC_N} requests, mix {mix}, "
+              f"{sum(len(tr.prompt) for tr in trace)} prompt and "
+              f"{sum(tr.max_new for tr in trace)} new tokens; the virtual-"
+              f"clock open loop equals the closed loop and the plain greedy "
+              f"decode per request; token steps closed {steps['closed loop']}"
+              f", open {steps['open loop, virtual clock']} (launches 28 x "
+              f"each); pools drained")
+        del engine, sched
+        _free(torch)
+
+        path = TRACE_DIR / f"{proc}.jsonl"
+        with _DriverSpy() as spy:
+            t1 = time.perf_counter()
+            pa.launches = 0
+            fin, engine, sched = serve.main(TRAFFIC_ARGV + [
+                "--traffic", proc, "--trace", str(path)])
+            n = pa.launches
+        wall = time.perf_counter() - t1
+        steps_w = _check_launches(n, engine, f"{proc} launcher")
+        launches[f"{proc} launcher"] = n
+        events = read_jsonl(str(path))
+        summary = check_trace(events)
+        evs = [e["ev"] for e in events if e["type"] == "req"]
+        spans = {e["name"] for e in events if e["type"] == "span"}
+        if not (evs.count("arrive") == evs.count("finish") == TRAFFIC_N
+                and spans == SPANS):
+            _fail(f"[traffic] {proc} launcher: arrive {evs.count('arrive')}"
+                  f", finish {evs.count('finish')}, spans {sorted(spans)}")
+        if {r.rid: r.out for r in fin} != outs["closed loop"]:
+            _fail(f"[traffic] {proc} launcher: tokens differ from check 1")
+        _drained(torch, engine, sched, f"{proc} launcher")
+        s = spy.drivers[-1].acct.summary(slo_ttft=SLO_TTFT,
+                                        slo_tpot=SLO_TPOT)
+        print(f"[traffic] {card}: {proc} launcher (wall clock, overlap, "
+              f"traced): TTFT p50 {s['ttft_p50'] * 1e3:.3f} ms, p99 "
+              f"{s['ttft_p99'] * 1e3:.3f} ms; TPOT p50 "
+              f"{s['tpot_p50'] * 1e3:.3f} ms, p99 {s['tpot_p99'] * 1e3:.3f}"
+              f" ms; throughput {s['throughput_req_s']:.4f} req/s "
+              f"({s['throughput_tok_s']:.3f} tok/s); SLO TTFT <= "
+              f"{SLO_TTFT} s, TPOT <= {SLO_TPOT} s: attainment "
+              f"{s['slo_attainment']:.4f}, goodput "
+              f"{s['goodput_req_s']:.4f} req/s; duration "
+              f"{s['duration_s']:.3f} s, {steps_w} token steps, "
+              f"{sched.stats['steps']} ticks, reads ready/wait "
+              f"{sched.stats['sync_device_ready']}/"
+              f"{sched.stats['sync_device_wait']}; trace {len(events)} "
+              f"events, {path.stat().st_size} B; checker OK {summary}; "
+              f"wall {wall:.3f} s with params init")
+        print(f"[traffic] {proc}: phase part {time.perf_counter() - t0:.1f}"
+              f" s")
+        del fin, engine, sched, spy
+        _free(torch)
+    _traced_tick(torch, PagedEngine, Scheduler, cfg, params, dev, card)
+    _traced_sync_free(torch, PagedEngine, Scheduler, cfg, params, dev)
+    launches.update(_traced_swap(torch, pa, serve, cfg, params, dev, card,
+                                 swap_outs))
+    return launches
+
+
+def _traced_tick(torch, engine_cls, sched_cls, cfg, params, dev, card):
+    """Steady decode ticks (4 slots, K 8, overlap off), untraced against
+    traced, in turns (off, on, on, off, twice; a fresh engine each run,
+    dropped undrained): each tick's host ms, the median per mode over 16
+    ticks, and the events one traced tick records."""
+    import statistics
+
+    from repro_torch.serve.telemetry import Telemetry
+
+    ticks, n_events = {False: [], True: []}, []
+    for traced in (False, True, True, False) * 2:
+        engine = _traffic_engine(engine_cls, cfg, params, dev)
+        telem = Telemetry(trace=True) if traced else None
+        sched = sched_cls(engine, prefill_chunk=8, decode_horizon=8,
+                          telemetry=telem)
+        for r in range(4):
+            sched.add_request([1 + r, 2, 3, 4], max_new=96)
+        for _ in range(2):                     # prefill, first horizon
+            sched.step()
+        torch.cuda.synchronize()
+        n0 = len(telem.tracer.events) if traced else 0
+        for _ in range(4):
+            t0 = time.perf_counter()
+            sched.step()
+            ticks[traced].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        if traced:
+            n_events.append((len(telem.tracer.events) - n0) / 4)
+        del engine, sched
+    med = {k: statistics.median(v) for k, v in ticks.items()}
+    print(f"[traffic] {card}: median host ms per decode tick (4 slots, K 8)"
+          f" over 16 ticks each: untraced {med[False]:.3f} (range "
+          f"{min(ticks[False]):.3f}-{max(ticks[False]):.3f}), traced "
+          f"{med[True]:.3f} ({min(ticks[True]):.3f}-{max(ticks[True]):.3f});"
+          f" traced / untraced {med[True] / med[False]:.4f}; "
+          f"{statistics.mean(n_events):.1f} events recorded per tick")
+    _free(torch)
+
+
+def _traced_sync_free(torch, engine_cls, sched_cls, cfg, params, dev):
+    """With every host sync an error, while a decode horizon's event is
+    pending (a spin kernel queued behind it): an arrival (``arrive``
+    event), a gauge sample, and the overlap's staged half of a traced
+    tick — ``_admit`` (its span, block events, an ``admit`` event) and
+    ``_prefill_stage`` (its span)."""
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.telemetry import Telemetry, check_trace
+
+    engine = _traffic_engine(engine_cls, cfg, params, dev)
+    telem = Telemetry(trace=True)
+    sched = sched_cls(engine, prefill_chunk=8, decode_horizon=8,
+                      overlap=True, prefix_cache=PrefixCache(8),
+                      telemetry=telem)
+    sched.add_request(list(range(1, 21)), max_new=40)
+    while sched._pending is None:
+        sched.step()                         # decoding
+    decode_many = engine.decode_many
+
+    def spun(*args):
+        block = decode_many(*args)
+        torch.cuda._sleep(int(400e6))        # about 0.2 s at 2 GHz
+        return block
+    engine.decode_many = spun
+    sched.step()                             # a horizon behind the spin
+    engine.decode_many = decode_many
+    reconcile, in_flight = sched._decode_reconcile, []
+
+    def reconcile_after_staging():
+        torch.cuda.set_sync_debug_mode("default")
+        in_flight.append(not sched._pending[1].query())
+        return reconcile()
+    sched._decode_reconcile = reconcile_after_staging
+    n0, hits = len(telem.tracer.events), sched.stats["prefix_hits"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sched.add_request(list(range(1, 13)) + [9, 9, 9], max_new=4)
+        sched._sample_gauges()
+        sched.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sched._decode_reconcile = reconcile
+    new = telem.tracer.events[n0:]
+    kinds = {(e["type"], e.get("ev", e.get("name", e.get("op"))))
+             for e in new}
+    want = {("req", "arrive"), ("gauge", None), ("span", "tick.admit"),
+            ("req", "admit"), ("block", "alloc"), ("block", "reserve"),
+            ("span", "tick.prefill_stage")}
+    if in_flight != [True] or not want <= kinds or \
+            sched.stats["prefix_hits"] != hits + 1:
+        _fail(f"[traffic] staged half traced: horizon in flight at the "
+              f"deferred read {in_flight}; events {sorted(map(str, kinds))}"
+              f"; prefix hits {hits} -> {sched.stats['prefix_hits']}")
+    done = sched.run()
+    check_trace(telem.tracer.events)
+    _drained(torch, engine, sched, "staged half")
+    if sorted(len(r.out) for r in done) != [4, 40]:
+        _fail("[traffic] the traced staged-half run did not finish")
+    print(f"[sync] traffic: an arrival, a gauge sample and the overlap's "
+          f"staged half with tracing on ({len(new)} events in that tick, "
+          f"a prefix hit among them) under set_sync_debug_mode('error') "
+          f"while the horizon's event was pending: no host sync; the "
+          f"trace passes the checker")
+    del engine, sched
+    _free(torch)
+
+
+def _preempt_latencies(events):
+    """Per preempted request: (TTFT ms, [ms from each preemption to the
+    request's next token]) read off a trace's request events."""
+    by_rid = {}
+    for e in events:
+        if e["type"] == "req":
+            by_rid.setdefault(e["rid"], []).append(e)
+    out = {}
+    for rid, evs in sorted(by_rid.items()):
+        if not any(e["ev"] == "preempt" for e in evs):
+            continue
+        arrive = next(e["ts"] for e in evs if e["ev"] == "arrive")
+        first = next(e["ts"] for e in evs if e["ev"] == "first_token")
+        gaps = []
+        for i, e in enumerate(evs):
+            if e["ev"] == "preempt":
+                nxt = next(x["ts"] for x in evs[i + 1:]
+                           if x["ev"] in ("first_token", "tokens"))
+                gaps.append(round((nxt - e["ts"]) * 1e3, 3))
+        out[rid] = (round((first - arrive) * 1e3, 3), gaps)
+    return out
+
+
+def _traced_swap(torch, pa, serve, cfg, params, dev, card, swap_outs):
+    """Phase 4d's schedule (6 requests of 60 + 40 tokens, 33 pages, 16-page
+    rows) traced, with the swap tier and with discard: the checker passes
+    with ``swap_out`` and ``swap_in`` in the swap trace, tokens equal
+    phase 4d's, and each preempted request's TTFT and time from
+    preemption to its next token, on the trace's host clock."""
+    from repro_torch.serve.telemetry import check_trace, read_jsonl
+
+    launches, lat = {}, {}
+    for mode, tier in (("swap", SWAP_TIER), ("discard", 0)):
+        t0 = time.perf_counter()
+        path = TRACE_DIR / f"swap_{mode}.jsonl"
+
+        def run():
+            return serve.serve(
+                cfg, params, requests=6, max_new=SWAP_NEW, batch_slots=4,
+                prefill_chunk=8, prompt_len=60, decode_horizon=8,
+                prefix_cache=False, host_swap_pages=tier, n_pages=33,
+                max_pages_per_seq=16, trace=str(path), device=dev)
+        pa.launches = 0
+        fin, engine, sched = run()
+        n = launches[f"traced {mode}"] = pa.launches
+        steps = _check_launches(n, engine, f"traced {mode}")
+        events = read_jsonl(str(path))
+        summary = check_trace(events)
+        ops = {e["op"] for e in events if e["type"] == "block"}
+        if {r.rid: r.out for r in fin} != swap_outs or (
+                mode == "swap" and not {"swap_out", "swap_in"} <= ops):
+            _fail(f"[traffic] traced {mode}: tokens differ from phase 4d "
+                  f"or no swap in the trace ({sorted(ops)})")
+        _drained(torch, engine, sched, f"traced {mode}")
+        lat[mode] = _preempt_latencies(events)
+        print(f"[traffic] traced phase 4d schedule, {mode}: checker OK "
+              f"{summary}; {len(events)} events; tokens equal phase 4d's; "
+              f"{steps} token steps ({time.perf_counter() - t0:.1f} s)")
+        del fin, engine, sched
+        _free(torch)
+    print(f"[traffic] {card}: phase 4d schedule, per preempted request "
+          f"(TTFT ms, [ms from each preemption to its next token]): swap "
+          f"{lat['swap']}; discard {lat['discard']}")
+    return launches
 
 
 # -- the mixed stacks: ring pool, recurrent state, MoE -----------------------
@@ -2144,8 +2539,13 @@ def main() -> int:
 
     _free(torch)
     t0 = time.perf_counter()
-    swap_launches = phase_swap(torch, pa, card)
+    swap_launches, swap_outs = phase_swap(torch, pa, card)
     print(f"[swap] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
+    traffic_launches = phase_traffic(torch, pa, card, dev, swap_outs)
+    print(f"[traffic] phase took {time.perf_counter() - t0:.1f} s")
 
     _free(torch)
     t0 = time.perf_counter()
@@ -2170,6 +2570,8 @@ def main() -> int:
                   for mode, n in prefix_launches.items()},
                **{f"qwen3-0.6b swap {mode}": n
                   for mode, n in swap_launches.items()},
+               **{f"qwen3-0.6b traffic {mode}": n
+                  for mode, n in traffic_launches.items()},
                **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -9,12 +9,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --prompt-len 60 --max-new 40 --n-pages 33 --max-pages-per-seq 16 \\
         --host-swap-pages 64                       # preemption to host swap
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --traffic poisson --trace t.jsonl --metrics    # open loop, traced
 
-Counterpart of ``repro/launch/serve.py``, default (closed-loop) path only:
-``serve/engine.py`` driven by ``serve/scheduler.py`` — admission, chunked
-prefill, the fused decode horizon, eviction and preemption — with page
-lifecycle through ``core/vbi/blocks.py::VBIAllocator`` and, as in the
-reference, cross-request page sharing through the prefix cache
+Counterpart of ``repro/launch/serve.py``: the closed-loop batch and the
+open-loop and observability modes (``--traffic``, ``--trace``,
+``--metrics``).  The reference's ``--legacy``, ``--disagg`` and
+``--faults`` come with ROADMAP.md § A9-A10 and ``--mesh-shape`` with
+§ A14.  ``serve/engine.py`` is driven by ``serve/scheduler.py`` —
+admission, chunked prefill, the fused decode horizon, eviction and
+preemption — with page lifecycle through
+``core/vbi/blocks.py::VBIAllocator`` and, as in the reference,
+cross-request page sharing through the prefix cache
 (``serve/prefix_cache.py``) on by default: ``--no-prefix-cache`` turns it
 off, and it turns itself off for stacks with RING or RECURRENT layers.
 ``--shared-prefix N`` puts one N-token system prompt, drawn from the seed
@@ -34,11 +40,25 @@ layers, the window and its ring pages).  Weights are random, drawn from
 no card; ``--device cpu`` serves the smoke configs on the CPU.
 ``--smoke``/``--no-smoke`` selects the reduced or the published width
 (the reference's ``--smoke`` flag cannot be switched off; here it can).
+
+``--traffic {poisson,bursty}`` replaces the closed-loop batch with
+open-loop serving: ``--requests`` requests of a seeded mixed workload
+(chat, RAG, agent, summarization; ``serve/traffic.py``) arrive at
+``--rate`` requests/s on the wall clock, and the run prints TTFT and TPOT
+percentiles, throughput, SLO attainment against ``--slo-ttft`` and
+``--slo-tpot``, and goodput under that SLO.  ``--trace OUT`` records the
+telemetry trace (request lifecycle, tick spans, every block op with its
+declared properties, per-tick gauges) and checks it against the
+allocator's conservation invariants on exit; ``--trace-format chrome``
+writes Chrome ``trace_event`` JSON instead, and ``--metrics`` prints the
+metrics-registry snapshot.  Offline: ``python -m
+repro_torch.serve.telemetry OUT [--chrome OUT.json]``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Optional
 
@@ -49,6 +69,8 @@ from ..models.model import init_params
 from ..serve.engine import PagedEngine
 from ..serve.prefix_cache import PrefixCache
 from ..serve.scheduler import Scheduler
+from ..serve.telemetry import Telemetry, check_trace
+from ..serve.traffic import LatencyAccountant, TrafficDriver, make_trace
 
 
 def serve_config(arch: str, smoke: bool = True):
@@ -66,7 +88,8 @@ def serve_config(arch: str, smoke: bool = True):
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="closed-loop paged serving on the PyTorch port")
+        description="paged serving on the PyTorch port: a closed-loop "
+                    "batch, or open-loop traffic with --traffic")
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -105,6 +128,29 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-pages-per-seq", type=int, default=None,
                     help="pages in one slot's page-table row (default: "
                          "the pool split evenly over the slots)")
+    ap.add_argument("--traffic", default=None,
+                    choices=("poisson", "bursty"),
+                    help="open-loop traffic: a seeded mixed workload "
+                         "arrives at --rate req/s on the wall clock; reports "
+                         "TTFT/TPOT percentiles and goodput under the SLO")
+    ap.add_argument("--rate", type=float, default=2.0,
+                    help="offered load for --traffic, requests per second")
+    ap.add_argument("--slo-ttft", type=float, default=float("inf"),
+                    help="TTFT SLO in seconds (for goodput accounting)")
+    ap.add_argument("--slo-tpot", type=float, default=float("inf"),
+                    help="TPOT SLO in seconds (for goodput accounting)")
+    ap.add_argument("--trace", metavar="OUT", default=None,
+                    help="record the telemetry trace (request lifecycle, "
+                         "tick spans, block ops, per-tick gauges) and check "
+                         "it on exit; offline: python -m "
+                         "repro_torch.serve.telemetry OUT")
+    ap.add_argument("--trace-format", default="jsonl",
+                    choices=("jsonl", "chrome"),
+                    help="'jsonl' (one event per line, the checker's input) "
+                         "or 'chrome' (trace_event JSON for Perfetto)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the metrics-registry snapshot (counters, "
+                         "gauges with high-water marks, latency histograms)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
@@ -112,8 +158,8 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Run the closed-loop serve and return ``(finished_requests, engine,
-    scheduler)``."""
+    """Run the serve (closed-loop, or open-loop with ``--traffic``) and
+    return ``(finished_requests, engine, scheduler)``."""
     args = _parser().parse_args(argv)
     cfg = serve_config(args.arch, args.smoke)
     params = init_params(cfg, seed=args.seed, device=args.device)
@@ -128,7 +174,10 @@ def main(argv=None):
                  overlap=args.overlap, host_swap_pages=args.host_swap_pages,
                  n_pages=args.n_pages,
                  max_pages_per_seq=args.max_pages_per_seq, seed=args.seed,
-                 device=args.device)
+                 device=args.device, traffic=args.traffic, rate=args.rate,
+                 slo_ttft=args.slo_ttft, slo_tpot=args.slo_tpot,
+                 trace=args.trace, trace_format=args.trace_format,
+                 metrics=args.metrics)
 
 
 def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
@@ -138,7 +187,10 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
           overlap: bool = False, host_swap_pages: int = 0,
           n_pages: Optional[int] = None,
           max_pages_per_seq: Optional[int] = None, seed: int = 0,
-          device="cuda"):
+          device="cuda", traffic: Optional[str] = None, rate: float = 2.0,
+          slo_ttft: float = float("inf"), slo_tpot: float = float("inf"),
+          trace: Optional[str] = None, trace_format: str = "jsonl",
+          metrics: bool = False):
     """The launcher's serve on given params (on ``device``): ``requests``
     prompts of ``shared_prefix`` system tokens (drawn first, shared by
     all) and ``prompt_len`` tokens of their own, drawn from ``seed``, each
@@ -146,7 +198,11 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     ``n_pages`` in the pool, by default ``32 + shared_prefix // 8`` a slot;
     a host swap tier of ``host_swap_pages``) and the scheduler, with the
     prefix cache unless ``prefix_cache`` is False or the stack cannot
-    share pages.  Returns ``(finished_requests, engine, scheduler)``."""
+    share pages.  With ``traffic`` ('poisson' or 'bursty') the requests
+    are instead ``make_trace``'s seeded mixed workload, arriving open-loop
+    at ``rate`` per second on the wall clock.  ``trace`` (a path) records
+    and checks the telemetry trace; ``metrics`` prints the registry.
+    Returns ``(finished_requests, engine, scheduler)``."""
     rng = np.random.default_rng(seed)
     system = rng.integers(0, cfg.vocab, shared_prefix).tolist()
     prompts = [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
@@ -168,13 +224,19 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
         print("[serve] prefix cache disabled: RING/RECURRENT layers are "
               "ineligible for cross-request page sharing")
         cache = None
+    telem = (Telemetry(trace=trace is not None)
+             if trace is not None or metrics else None)
     sched = Scheduler(engine, prefill_chunk=prefill_chunk,
                       prefix_cache=cache, decode_horizon=decode_horizon,
-                      overlap=overlap)
+                      overlap=overlap, telemetry=telem)
     t0 = time.perf_counter()
-    for p in prompts:
-        sched.add_request(p, max_new=max_new)
-    finished = sched.run()
+    if traffic is not None:
+        finished = _run_traffic(cfg, sched, traffic, requests, rate, seed,
+                                slo_ttft, slo_tpot)
+    else:
+        for p in prompts:
+            sched.add_request(p, max_new=max_new)
+        finished = sched.run()
     dt = time.perf_counter() - t0
     for req in finished:
         print(f"[serve] req {req.rid} done: {req.prompt[-4:]} -> "
@@ -194,9 +256,60 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
               f"({a['swapped_in_pages']} pages, {a['swap_bytes_in']} B), "
               f"rejects {a['swap_rejects']}; prefill tokens "
               f"{sched.stats['prefill_tokens']}")
+    if telem is not None:
+        _emit_telemetry(telem, trace, trace_format, metrics)
     print(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
           f"{dt:.3f}s on {engine.device} ({n_out / dt:.1f} tok/s)")
     return finished, engine, sched
+
+
+def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
+                 seed: int, slo_ttft: float, slo_tpot: float):
+    """Open-loop serving on the wall clock: requests arrive whether or not
+    the engine has capacity, and the user-visible numbers are latency
+    percentiles and goodput under the SLO.  Returns the finished
+    requests."""
+    trace = make_trace(cfg.vocab, requests, rate=rate, seed=seed,
+                       process=process)
+    mix = {}
+    for tr in trace:
+        mix[tr.profile] = mix.get(tr.profile, 0) + 1
+    print(f"[serve] open-loop {process} traffic: {requests} requests @ "
+          f"{rate:g} req/s, mix {mix}, overlap "
+          f"{'on' if sched.overlap else 'off'}")
+    # wall clock; the latency histograms join the scheduler's registry
+    drv = TrafficDriver(sched, trace,
+                        accountant=LatencyAccountant(sched.metrics))
+    finished = drv.run()
+    s = drv.acct.summary(slo_ttft=slo_ttft, slo_tpot=slo_tpot)
+    print(f"[serve] ttft p50={s['ttft_p50'] * 1e3:.1f}ms "
+          f"p99={s['ttft_p99'] * 1e3:.1f}ms | "
+          f"tpot p50={s['tpot_p50'] * 1e3:.1f}ms "
+          f"p99={s['tpot_p99'] * 1e3:.1f}ms")
+    print(f"[serve] throughput={s['throughput_req_s']:.2f}req/s "
+          f"({s['throughput_tok_s']:.1f}tok/s) "
+          f"slo_attainment={s['slo_attainment']:.2f} "
+          f"goodput={s['goodput_req_s']:.2f}req/s")
+    return finished
+
+
+def _emit_telemetry(telem, trace: Optional[str], trace_format: str,
+                    metrics: bool) -> None:
+    """Write the recorded trace (JSONL or Chrome ``trace_event``), check
+    it against the allocator's conservation invariants, and print the
+    metrics snapshot when asked."""
+    if telem.tracer is not None:
+        rec = telem.tracer
+        if trace_format == "chrome":
+            rec.write_chrome(trace)
+        else:
+            rec.write_jsonl(trace)
+        summary = check_trace(rec.events)
+        print(f"[serve] trace: {len(rec.events)} events -> {trace} "
+              f"({trace_format}); checker OK — {summary}")
+    if metrics:
+        print("[serve] metrics snapshot:")
+        print(json.dumps(telem.metrics.snapshot(), indent=2, sort_keys=True))
 
 
 if __name__ == "__main__":

@@ -63,6 +63,7 @@ from ..models.model import _layer_params, _logits
 from ..models.rglru import rglru_decode_step
 from ..models.ssm import mamba_decode_step, ssm_dims
 from .paged import _qkv_ragged
+from .telemetry import StatsView
 
 
 # --------------------------------------------------------------------------
@@ -364,6 +365,17 @@ class PagedEngine:
                                   mtl=mtl)
         self._step = partial(_token_step, cfg, geom, self.max_pages,
                              attn_impl, self.ring_table)
+
+    def attach_metrics(self, metrics) -> None:
+        """Move the engine's dispatch counters onto a shared
+        :class:`~repro_torch.serve.telemetry.MetricsRegistry` (keys
+        ``engine.*``).  The ``stats`` face stays dict-compatible and keeps
+        its counts, so attaching mid-run loses nothing."""
+        old = dict(self.stats)
+        self.metrics = metrics
+        self.stats = StatsView(metrics, prefix="engine.", keys=list(old))
+        for k, v in old.items():
+            self.stats[k] = v
 
     # -- the property-typed pool protocol (read by allocator + scheduler) ---
     @property

@@ -1,5 +1,5 @@
-"""Closed-loop continuous-batching scheduler over the PagedEngine (host
-policy; counterpart of ``repro/serve/scheduler.py``).
+"""Continuous-batching scheduler over the PagedEngine (host policy;
+counterpart of ``repro/serve/scheduler.py``).
 
 The device owns translation and allocation mechanics (``core/vbi/
 kvcache.py``), the VBIAllocator (``core/vbi/blocks.py``) owns the memory
@@ -60,11 +60,27 @@ fresh device tensor (``device.py::stage``: on CUDA through a fresh pinned
 buffer, without waiting on the device), so no in-flight transfer can read
 a buffer the host refills on the next tick.
 
-Not in this slice (ROADMAP.md § A8-A9): telemetry and the fault plane;
-asking for either raises.
+Streaming: ``on_tokens(req, n_new)`` fires whenever host-visible tokens
+are appended to a request (the first token at prefill finish, up to K at
+each horizon read) and ``on_finish(req)`` at eviction — the hooks the
+open-loop traffic driver (``serve/traffic.py``) timestamps for TTFT and
+TPOT, closed-loop or open-loop alike.
+
+Telemetry (``telemetry=``, a :class:`~repro_torch.serve.telemetry.
+Telemetry`): counters always live in a metrics registry (``stats`` is a
+dict-compatible :class:`~repro_torch.serve.telemetry.StatsView` over it);
+with a bundle passed in, the engine's counters join the registry, each
+tick ends with a gauge sample, and a trace recorder, if the bundle has
+one, receives tick spans, request events and the allocator's block
+events.  Recording only appends to lists and reads host mirrors and
+``time.perf_counter``: it adds no host sync and changes no decision.
+
+Not in this slice (ROADMAP.md § A9): the fault plane (``faults=``
+raises), load shedding and the ``on_shed`` hook.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Deque, Dict, List, Optional, Tuple
@@ -74,9 +90,21 @@ import torch
 
 from ..core.vbi.address_space import VBProps
 from ..core.vbi.blocks import DEFAULT_BLOCK_PROPS, VirtualBlock
+from ..core.vbi.kvcache import tier_nbytes
 from ..device import stage
 from .engine import PagedEngine
 from .prefix_cache import PrefixCache, PrefixMatch, _Node
+from .telemetry import MetricsRegistry, StatsView, Telemetry
+
+#: ``Scheduler.stats`` keys, pinned (the reference's, less the fault
+#: plane's, which come with ROADMAP.md § A9): the dict-compatible face
+#: over the registry's ``sched.*`` counters
+_STAT_KEYS = ("preemptions", "steps", "prefix_hits",
+              "prefix_tokens_reused", "cache_evicted_pages", "swap_outs",
+              "swap_ins", "prefill_tokens", "host_syncs",
+              "prefill_host_reads", "prefill_reads_skipped",
+              "horizon_truncations", "overlap_staged_ticks",
+              "sync_device_ready", "sync_device_wait")
 
 
 def check_request_fits(engine: PagedEngine, alloc, prompt_len: int,
@@ -142,13 +170,12 @@ class Scheduler:
                  prefix_cache: Optional[PrefixCache] = None,
                  block_props: VBProps = DEFAULT_BLOCK_PROPS,
                  decode_horizon: int = 1, overlap: bool = False,
-                 telemetry=None, faults=None):
-        unported = {"telemetry": telemetry, "faults": faults}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP.md § A8-A9); pass "
-                    f"{name}=None")
+                 on_tokens=None, on_finish=None,
+                 telemetry: Optional[Telemetry] = None, faults=None):
+        if faults is not None:
+            raise NotImplementedError(
+                "faults is not ported yet (ROADMAP.md § A9); pass "
+                "faults=None")
         if prefix_cache is not None:
             if prefix_cache.page_size != engine.page_size:
                 raise ValueError(
@@ -172,6 +199,8 @@ class Scheduler:
         self.block_props = block_props
         self.decode_horizon = decode_horizon
         self.overlap = overlap
+        self.on_tokens = on_tokens        # streaming hooks (serve/traffic.py)
+        self.on_finish = on_finish
         self.queue: Deque[Request] = deque()
         self.slots: Dict[int, _SlotState] = {}
         self.finished: List[Request] = []
@@ -182,18 +211,82 @@ class Scheduler:
         # and per-slot step budgets it was dispatched with, reconciled at
         # the NEXT tick's read
         self._pending: Optional[tuple] = None
-        self.stats = {k: 0 for k in (
-            "preemptions", "steps", "prefix_hits", "prefix_tokens_reused",
-            "cache_evicted_pages", "swap_outs", "swap_ins",
-            "prefill_tokens", "host_syncs",
-            "prefill_host_reads", "prefill_reads_skipped",
-            "horizon_truncations", "overlap_staged_ticks",
-            "sync_device_ready", "sync_device_wait")}
+        # telemetry: counters always live in a registry; the engine's
+        # counters, the gauge sample and the tracer only with a bundle
+        self.telemetry = telemetry
+        self.metrics = (telemetry.metrics if telemetry is not None
+                        else MetricsRegistry())
+        self.tracer = telemetry.tracer if telemetry is not None else None
+        self.stats = StatsView(self.metrics, prefix="sched.",
+                               keys=_STAT_KEYS)
+        if telemetry is not None:
+            engine.attach_metrics(self.metrics)
+        if self.tracer is not None:
+            self.alloc.attach_tracer(self.tracer)
+            self.tracer.meta(
+                model=engine.cfg.name, decode_horizon=decode_horizon,
+                overlap=overlap, prefill_chunk=prefill_chunk,
+                tier_nbytes=tier_nbytes(engine.state))
 
     def _to_device(self, buf: np.ndarray) -> torch.Tensor:
         """A fresh device tensor holding a copy of ``buf`` (the host may
         refill ``buf`` as soon as this returns)."""
         return stage(buf, self.engine.device)
+
+    # -- telemetry emit sites (each one `is None` check when disabled) -------
+    def _span(self, name: str, **args):
+        """Tick-timeline span context (a no-op without a trace recorder):
+        reads ``time.perf_counter`` only, never the device."""
+        if self.tracer is None:
+            return contextlib.nullcontext({})
+        return self.tracer.span(name, tick=self.stats["steps"], **args)
+
+    def _req_ev(self, ev: str, req: Request, **fields) -> None:
+        if self.tracer is not None:
+            self.tracer.req_event(ev, req.rid, **fields)
+
+    def _sample_gauges(self) -> None:
+        """End-of-tick gauge sample: pool occupancy, host-swap traffic,
+        slot usage per tier, prefix-cache share depth.  Every value comes
+        from a host mirror (``alloc.free_pages``, never the engine's
+        ``free_pages``, which reads the device), so the sample adds no
+        sync.  The ``alloc.free_pages`` and ``swap.pages_used`` names are
+        load-bearing: the offline checker holds each sample against its
+        replay."""
+        if self.telemetry is None:
+            return
+        al, geom = self.alloc, self.engine.geom
+        a_stats = al.stats
+        n_pre = sum(1 for st in self.slots.values() if st.prefilling)
+        used = self.engine.n_pages - 1 - al.free_pages
+        vals = {
+            "alloc.free_pages": al.free_pages,
+            "alloc.pages_used": used,
+            "swap.pages_used": al.swap.used_pages if al.swap else 0,
+            "swap.bytes_held": al.swap.bytes_held if al.swap else 0,
+            "swap.bytes_out": a_stats.get("swap_bytes_out", 0),
+            "swap.bytes_in": a_stats.get("swap_bytes_in", 0),
+            "slots.active": len(self.slots),
+            "slots.prefilling": n_pre,
+            "slots.decoding": len(self.slots) - n_pre,
+            "queue.depth": len(self.queue),
+            "tier.ring_slots": len(self.slots) if geom.n_ring else 0,
+            "tier.recurrent_slots": (len(self.slots)
+                                     if geom.n_recurrent else 0),
+            "cache.pages": (self.prefix_cache.n_pages
+                            if self.prefix_cache else 0),
+            "cache.pinned_pages": (
+                self.prefix_cache.n_pages
+                - self.prefix_cache.evictable_pages
+                if self.prefix_cache else 0),
+        }
+        # the pool's used page slots, per device of its placement set
+        for dev in al.placement:
+            vals[f"placement.{dev}.pages_used"] = used
+        for k, v in vals.items():
+            self.metrics.gauge(k).set(v)
+        if self.tracer is not None:
+            self.tracer.gauge_sample(self.stats["steps"], vals)
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt: List[int], max_new: int,
@@ -204,7 +297,12 @@ class Scheduler:
                            shareable_pages=shareable)
         rid = self._next_rid if rid is None else rid
         self._next_rid = max(self._next_rid, rid) + 1
-        self.queue.append(Request(rid, list(prompt), max_new))
+        req = Request(rid, list(prompt), max_new)
+        self.queue.append(req)
+        # the arrive event carries the prompt itself (the reference's
+        # trace doubles as the crash-recovery journal)
+        self._req_ev("arrive", req, prompt_len=len(prompt), max_new=max_new,
+                     prompt=list(prompt))
         return rid
 
     # -- page budgeting (delegated to the allocator's host mirror) -----------
@@ -272,6 +370,14 @@ class Scheduler:
     def _admit(self) -> None:
         free_slots = [s for s in range(self.engine.max_seqs)
                       if s not in self.slots]
+        if not (self.queue and free_slots):
+            return
+        with self._span("tick.admit") as ext:
+            n0 = len(self.slots)
+            self._admit_loop(free_slots)
+            ext["admitted"] = len(self.slots) - n0
+
+    def _admit_loop(self, free_slots: List[int]) -> None:
         while self.queue and free_slots:
             req = self.queue[0]
             if req.block is not None:
@@ -321,6 +427,8 @@ class Scheduler:
                 self.prefix_cache.record(match, len(req.tokens))
                 st.pinned.extend(match.all_nodes())
             self.slots[slot] = st
+            self._req_ev("admit", req, slot=slot, bid=blk.bid,
+                         cached_tokens=st.fed, budget_pages=budget)
 
     def _admit_swapped(self, req: Request, free_slots: List[int]) -> bool:
         """Re-admit a host-swapped request: budget its full span (with the
@@ -336,11 +444,13 @@ class Scheduler:
         slot = free_slots.pop(0)
         blk, req.block = req.block, None
         self.alloc.swap_in(blk, slot, reserve_pages=budget)
-        self.slots[slot] = _SlotState(req, blk, prefill_len=len(req.tokens),
-                                      fed=blk.n_tokens,
-                                      admit_seq=self._admit_seq)
+        st = _SlotState(req, blk, prefill_len=len(req.tokens),
+                        fed=blk.n_tokens, admit_seq=self._admit_seq)
         self._admit_seq += 1
+        self.slots[slot] = st
         self.stats["swap_ins"] += 1
+        self._req_ev("admit", req, slot=slot, bid=blk.bid, resume="swap",
+                     restored_tokens=st.fed, budget_pages=budget)
         return True
 
     def _evict(self, slot: int) -> None:
@@ -348,6 +458,10 @@ class Scheduler:
         self._unpin(st)
         self.alloc.free(st.block)
         self.finished.append(st.req)
+        self._req_ev("finish", st.req, slot=slot, n_out=len(st.req.out),
+                     preemptions=st.req.preemptions)
+        if self.on_finish is not None:
+            self.on_finish(st.req)
 
     def _preempt_one(self) -> bool:
         """Release the youngest running non-PINNED slot back to the queue
@@ -369,10 +483,14 @@ class Scheduler:
             self._unpin(st)
             st.req.block = st.block
             self.stats["swap_outs"] += 1
+            placement = "swap"
         else:
             self._cache_insert(st)
             self._unpin(st)
             self.alloc.free(st.block)
+            placement = "discard"
+        self._req_ev("preempt", st.req, slot=slot, placement=placement,
+                     fed=st.fed)
         st.req.preemptions += 1
         self.queue.appendleft(st.req)    # keeps its generated prefix
         self.stats["preemptions"] += 1
@@ -436,14 +554,17 @@ class Scheduler:
         pre = {s: st for s, st in self.slots.items() if st.prefilling}
         if not pre:
             return None
-        S, C = self.engine.max_seqs, self.prefill_chunk
-        toks = np.zeros((S, C), np.int32)
-        counts = np.zeros((S,), np.int32)
-        for s, st in pre.items():
-            n = min(C, st.prefill_len - st.fed)
-            self.alloc.reserve(st.block, st.fed + n)
-            toks[s, :n] = st.req.tokens[st.fed:st.fed + n]
-            counts[s] = n
+        with self._span("tick.prefill_stage") as ext:
+            S, C = self.engine.max_seqs, self.prefill_chunk
+            toks = np.zeros((S, C), np.int32)
+            counts = np.zeros((S,), np.int32)
+            for s, st in pre.items():
+                n = min(C, st.prefill_len - st.fed)
+                self.alloc.reserve(st.block, st.fed + n)
+                toks[s, :n] = st.req.tokens[st.fed:st.fed + n]
+                counts[s] = n
+            ext["slots"] = len(pre)
+            ext["tokens"] = int(counts.sum())
         return pre, toks, counts
 
     def _prefill_launch(self, staged: Optional[tuple]) -> Optional[tuple]:
@@ -452,8 +573,9 @@ class Scheduler:
         if staged is None:
             return None
         pre, toks, counts = staged
-        nxt_dev = self.engine.prefill_chunk(self._to_device(toks),
-                                            self._to_device(counts))
+        with self._span("tick.prefill_launch", slots=len(pre)):
+            nxt_dev = self.engine.prefill_chunk(self._to_device(toks),
+                                                self._to_device(counts))
         self.stats["prefill_tokens"] += int(counts.sum())
         return pre, counts, nxt_dev
 
@@ -464,23 +586,30 @@ class Scheduler:
         if handle is None:
             return
         pre, counts, nxt_dev = handle
-        finishing = [s for s, st in pre.items()
-                     if st.fed + counts[s] >= st.prefill_len]
-        nxt = None
-        if finishing:
-            nxt = nxt_dev.cpu().numpy()
-            self.stats["host_syncs"] += 1
-            self.stats["prefill_host_reads"] += 1
-        else:
-            self.stats["prefill_reads_skipped"] += 1
-        for s, st in pre.items():
-            st.fed += int(counts[s])
-            self.alloc.commit(st.block, st.fed)
-            if not st.prefilling:          # prompt done → first token
-                if not st.inserted:        # share the prompt's KV pages
-                    self._cache_insert(st)
-                    st.inserted = True
-                st.req.out.append(int(nxt[s]))
+        with self._span("tick.prefill_finish") as ext:
+            finishing = [s for s, st in pre.items()
+                         if st.fed + counts[s] >= st.prefill_len]
+            nxt = None
+            if finishing:
+                nxt = nxt_dev.cpu().numpy()
+                self.stats["host_syncs"] += 1
+                self.stats["prefill_host_reads"] += 1
+            else:
+                self.stats["prefill_reads_skipped"] += 1
+            ext["host_read"] = bool(finishing)
+            for s, st in pre.items():
+                st.fed += int(counts[s])
+                self.alloc.commit(st.block, st.fed)
+                self._req_ev("prefill_chunk", st.req, slot=s,
+                             n=int(counts[s]), fed=st.fed)
+                if not st.prefilling:      # prompt done → first token
+                    if not st.inserted:    # share the prompt's KV pages
+                        self._cache_insert(st)
+                        st.inserted = True
+                    st.req.out.append(int(nxt[s]))
+                    self._req_ev("first_token", st.req, slot=s)
+                    if self.on_tokens is not None:
+                        self.on_tokens(st.req, 1)
 
     def _decode_dispatch(self, pre_ids) -> None:
         """Plan and dispatch one fused decode horizon for slots past their
@@ -496,19 +625,20 @@ class Scheduler:
         dec_ids = [s for s in dec_ids if s in self.slots and s in wants]
         if not dec_ids:
             return
-        S = self.engine.max_seqs
-        toks = np.zeros((S,), np.int32)
-        mask = np.zeros((S,), bool)
-        steps = np.zeros((S,), np.int32)
-        for s in dec_ids:
-            toks[s] = self.slots[s].req.tokens[-1]
-            mask[s] = True
-            steps[s] = wants[s]     # exactly the span reserved above
-        block_dev = self.engine.decode_many(
-            self._to_device(toks), self._to_device(mask),
-            self._to_device(steps), k)
-        self._pending = (block_dev, self.engine.ready_event(block_dev),
-                         dec_ids, wants)
+        with self._span("tick.decode_dispatch", k=k, slots=len(dec_ids)):
+            S = self.engine.max_seqs
+            toks = np.zeros((S,), np.int32)
+            mask = np.zeros((S,), bool)
+            steps = np.zeros((S,), np.int32)
+            for s in dec_ids:
+                toks[s] = self.slots[s].req.tokens[-1]
+                mask[s] = True
+                steps[s] = wants[s]     # exactly the span reserved above
+            block_dev = self.engine.decode_many(
+                self._to_device(toks), self._to_device(mask),
+                self._to_device(steps), k)
+            self._pending = (block_dev, self.engine.ready_event(block_dev),
+                             dec_ids, wants)
 
     def _decode_reconcile(self) -> None:
         """THE one host read of the horizon: pull the [K, S] int32 token
@@ -520,19 +650,27 @@ class Scheduler:
             return
         block_dev, event, dec_ids, wants = self._pending
         self._pending = None
-        ready = self.engine.block_ready(block_dev, event)
-        self.stats["sync_device_ready" if ready else "sync_device_wait"] += 1
-        block = block_dev.cpu().numpy()
-        self.stats["host_syncs"] += 1
-        for s in dec_ids:
-            st = self.slots[s]
-            col = block[:, s]
-            produced = col[col >= 0]          # -1 = masked lane
-            st.fed += len(produced)
-            self.alloc.commit(st.block, st.fed)
-            if len(produced) < wants[s]:      # stopped on device (EOS)
-                self.alloc.unreserve(st.block, st.fed)
-            st.req.out.extend(int(t) for t in produced)
+        with self._span("tick.decode_reconcile", slots=len(dec_ids)) as ext:
+            ready = self.engine.block_ready(block_dev, event)
+            self.stats["sync_device_ready" if ready
+                       else "sync_device_wait"] += 1
+            ext["sync"] = "ready" if ready else "wait"
+            block = block_dev.cpu().numpy()
+            self.stats["host_syncs"] += 1
+            for s in dec_ids:
+                st = self.slots[s]
+                col = block[:, s]
+                produced = col[col >= 0]          # -1 = masked lane
+                st.fed += len(produced)
+                self.alloc.commit(st.block, st.fed)
+                if len(produced) < wants[s]:      # stopped on device (EOS)
+                    self.alloc.unreserve(st.block, st.fed)
+                st.req.out.extend(int(t) for t in produced)
+                if len(produced):
+                    self._req_ev("tokens", st.req, slot=s,
+                                 n=int(len(produced)))
+                    if self.on_tokens is not None:
+                        self.on_tokens(st.req, len(produced))
 
     def _evict_finished(self) -> None:
         """Eviction: max_new reached, or the device emitted EOS."""
@@ -579,6 +717,7 @@ class Scheduler:
         if not self.overlap:
             self._decode_reconcile()
             self._evict_finished()
+        self._sample_gauges()
         return self.finished[done_before:]
 
     def run(self, max_steps: int = 100_000) -> List[Request]:

@@ -30,6 +30,10 @@ runs on a machine without JAX:
     the overlap's staged half (cache eviction, admission with a hit,
     prefill staging) runs under ``set_sync_debug_mode("error")`` while a
     decode horizon's event is pending;
+  * open-loop traffic on the virtual clock under pool pressure, traced
+    and untraced, overlap off and on: the port's checker accepts the
+    trace, tokens and host reads are equal, tokens the plain greedy
+    decode;
   * the host swap tier on the card: a block's pages, ring frames and
     recurrent rows round-trip ``swap_out``/``swap_in`` (into another slot)
     bit-exact, with the same image checksum; ``swap_in`` (``restore_block``
@@ -79,6 +83,8 @@ from repro_torch.models.quantized import qmm, quantize_serving_params
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.telemetry import Telemetry, check_trace
+from repro_torch.serve.traffic import TrafficDriver, VirtualClock, make_trace
 
 from _torch_simdram_cases import alias_program, hand_program
 
@@ -465,6 +471,41 @@ def test_prefix_staged_half_is_sync_free(dev):
     assert sorted(len(r.out) for r in done) == [2, 4, 30]
     eng.alloc.release(sched.prefix_cache.evict(sched.prefix_cache.n_pages))
     assert eng.pages_in_use == 0 and eng.free_pages == eng.alloc.free_pages
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_traced_open_loop_serve_on_card(dev, overlap):
+    """Open-loop traffic on the virtual clock under pool pressure (host
+    swap tier), traced and untraced: the port's checker accepts the
+    trace, the tokens are equal, and so are the host reads."""
+    cfg = serve_config("qwen3-0.6b")
+    params = init_params(cfg, seed=0, device=dev)
+    trace = make_trace(cfg.vocab, n_requests=8, rate=2.0, seed=9,
+                       max_prompt=8, max_new_cap=12)
+    runs = []
+    for traced in (True, False):
+        eng = PagedEngine(cfg, params, n_pages=9, page_size=4, max_seqs=4,
+                          max_pages_per_seq=5, host_swap_pages=16,
+                          device=dev)
+        telem = Telemetry(trace=True) if traced else None
+        sched = Scheduler(eng, prefill_chunk=4, decode_horizon=4,
+                          overlap=overlap, telemetry=telem)
+        before = paged_attention.launches
+        fin = TrafficDriver(sched, trace, clock=VirtualClock()).run()
+        assert (paged_attention.launches - before
+                == eng.geom.n_full * eng.stats["token_steps"])
+        assert sched.stats["swap_ins"] >= 1
+        assert eng.pages_in_use == 0 and eng.alloc.swap.used_pages == 0
+        runs.append(({r.rid: r.out for r in fin},
+                     sched.stats["host_syncs"]))
+        if traced:
+            summary = check_trace(telem.tracer.events)
+            assert summary["live_blocks"] == 0
+            evs = [e["ev"] for e in telem.tracer.events if e["type"] == "req"]
+            assert evs.count("arrive") == evs.count("finish") == 8
+            for req in fin:
+                _plain_greedy_agrees(cfg, params, req, dev)
+    assert runs[0] == runs[1]
 
 
 def _swap_pool(dev, seed=0):

@@ -68,13 +68,12 @@ def test_scheduler_rejects_oversized_requests():
         sched.add_request(list(range(6)), max_new=2)
 
 
-@pytest.mark.parametrize("kw", [dict(telemetry=object()),
-                                dict(faults=object())])
+@pytest.mark.parametrize("kw", [dict(faults=object())])
 def test_unported_scheduler_options_raise(kw):
     cfg, _, tp = bridged("qwen3-0.6b")
     eng = PagedEngine(cfg, tp, n_pages=9, page_size=4, max_seqs=2,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md § A9"):
         Scheduler(eng, **kw)
 
 
