@@ -83,6 +83,26 @@ Phases (any failure exits non-zero and prints no result line):
               phase 4d's schedule traced with swap and with discard: the
               checker passes, tokens equal phase 4d's, and each preempted
               request's TTFT and time from preemption to its next token;
+ 4f. chaos  — the fault plane, exact recovery and disaggregation on the
+              qwen3 serve's weights: phase 4d's schedule through the
+              launcher with ``--faults --fault-rate 0.1 --fault-seed 7``
+              and 3 forced decode-tick faults, traced (tokens equal phase
+              4d's, faults fired per class, none unresolved, the checker
+              passes, pool and tier drained); the launcher's ``--disagg
+              --overlap --trace OUT --metrics`` on phase 4's 6 requests
+              (prefill 6 slots / 49 pages, decode 3 / 97), clean and with
+              ``--faults``: tokens equal phase 4's, 6 handoffs, a two-pool
+              trace (``n_pools == 2``), the host ms of each
+              ``export_image`` and the device ms of each import scatter
+              beside a ``copy_`` of its bytes; crash recovery of 5 of
+              phase 4's requests (3 slots, horizon 4, a snapshot every 3
+              ticks, the crash after 6 with a late arrival) on a fresh
+              engine, clean and with a bit-flipped snapshot leg: merged
+              tokens equal phase 4's, snapshot bytes and host ms per save;
+              the decode scheduler's ``_admit_image`` and a faulted
+              ``_call_vbi`` reserve under ``set_sync_debug_mode("error")``
+              with a horizon's event pending.  Launches 28 x token steps
+              in every run (both engines' under ``--disagg``);
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -163,6 +183,7 @@ import gc
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1503,6 +1524,407 @@ def _traced_swap(torch, pa, serve, cfg, params, dev, card, swap_outs):
     return launches
 
 
+# -- the fault plane, exact recovery and disaggregation ----------------------
+#: phase 4f: (1) phase 4d's schedule under FaultPlan(0.1, seed=7) with 3
+#: forced decode-tick faults, traced; (2) the launcher's ``--disagg`` on
+#: phase 4's 6 requests of 4 + 16 tokens (prefill 6 slots / 49 pages,
+#: decode 3 slots / 97 pages), clean and with ``--faults --fault-rate
+#: 0.1``; (3) crash recovery of 5 of phase 4's requests on 3 slots, horizon
+#: 4, a snapshot every 3 ticks, the crash after 6 (+ one tick with a late
+#: arrival); (4) the image admission and a faulted reserve, sync-free
+CHAOS_RATE, CHAOS_SEED, CHAOS_TICKS = 0.1, 7, 3
+CHAOS_DIR = Path(__file__).resolve().parent / "build" / "chaos"
+FAULT_ARGV = ["--faults", "--fault-rate", str(CHAOS_RATE), "--fault-seed",
+              str(CHAOS_SEED)]
+DISAGG_ARGV = ["--no-smoke", "--disagg", "--overlap", "--metrics"]
+DISAGG_MODES = (("clean", []), ("faults", FAULT_ARGV))
+CRASH_SNAP_EVERY, CRASH_TICKS = 3, 6
+
+
+class _ForcedTicks:
+    """While entered, every fault plan the launcher builds gets ``n``
+    forced ``decode_tick`` faults and is kept."""
+
+    def __init__(self, serve, n: int):
+        self.serve, self.n, self.plans = serve, n, []
+
+    def __enter__(self):
+        make = self.saved = self.serve.plan_from_args
+
+        def forced(*args, **kw):
+            plan = make(*args, **kw)
+            plan.force("decode_tick", self.n)
+            self.plans.append(plan)
+            return plan
+        self.serve.plan_from_args = forced
+        return self
+
+    def __exit__(self, *exc):
+        self.serve.plan_from_args = self.saved
+
+
+class _ExportClock:
+    """While entered, times every ``VBIAllocator.export_image`` on the
+    host clock and keeps each image."""
+
+    def __init__(self):
+        from repro_torch.core.vbi.blocks import VBIAllocator
+        self.cls, self.images, self.ms = VBIAllocator, [], []
+
+    def __enter__(self):
+        export = self.saved = self.cls.export_image
+
+        def timed(alloc, *args, **kw):
+            t0 = time.perf_counter()
+            img = export(alloc, *args, **kw)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.images.append(img)
+            return img
+        self.cls.export_image = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.export_image = self.saved
+
+
+def _chaos_launches(pa, engines, tag):
+    """The kernel's count since it was set to 0 must equal (full + ring
+    layers, 28) x the token steps of ``engines``; returns the steps."""
+    steps = sum(e.stats["token_steps"] for e in engines)
+    n_attn = engines[0].geom.n_full + engines[0].geom.n_ring
+    if pa.launches != n_attn * steps or pa.launches == 0:
+        _fail(f"[chaos] {tag}: kernel launches {pa.launches} != {n_attn} x "
+              f"{steps} token steps")
+    return steps
+
+
+def _chaos_drained(engine, tag):
+    al = engine.alloc
+    if al.pages_in_use != 0 or engine.free_pages != al.free_pages or (
+            al.swap is not None and al.swap.used_pages != 0):
+        _fail(f"[chaos] {tag}: pool or tier not drained, or mirror off")
+
+
+def _chaos_trace(path, plan, n_pools, tag):
+    """The trace at ``path`` passes the checker with every fault the plan
+    fired resolved; returns the checker's summary."""
+    from repro_torch.serve.telemetry import check_trace, read_jsonl
+    summary = check_trace(read_jsonl(str(path)))
+    fired = sum(plan.fired.values()) if plan is not None else 0
+    if summary["n_pools"] != n_pools or summary["n_faults"] != fired or \
+            summary["faults_unresolved"] or summary["images_in_flight"] \
+            or summary["live_blocks"]:
+        _fail(f"[chaos] {tag}: checker summary {summary}, faults fired "
+              f"{fired}")
+    return summary
+
+
+def phase_chaos(torch, pa, card, dev, serve_outs, swap_outs):
+    """Phase 4f: the fault plane, exact recovery and disaggregation on
+    full-width qwen3-0.6b (weights from seed 0).  (1) phase 4d's schedule
+    through the launcher with ``--faults`` and 3 forced decode-tick
+    faults, traced: tokens equal phase 4d's, faults fired per class, none
+    unresolved, the checker passes, pool and tier drained; (2) the
+    launcher's ``--disagg --overlap --trace --metrics``, clean and with
+    ``--faults``: tokens equal phase 4's, 6 handoffs, a two-pool trace,
+    the host ms of each export and the device ms of each import scatter
+    beside a ``copy_`` of its bytes; (3) crash recovery on a fresh engine,
+    clean and with a bit-flipped leg: merged tokens equal phase 4's; (4)
+    ``_admit_image`` and a faulted reserve under a pending horizon with
+    every host sync an error.  Launches 28 x token steps in every run.
+    Returns kernel launches by run."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+
+    if CHAOS_DIR.exists():
+        shutil.rmtree(CHAOS_DIR)
+    CHAOS_DIR.mkdir(parents=True)
+    launches = {}
+
+    # (1) unified chaos under pool pressure
+    t0 = time.perf_counter()
+    path = CHAOS_DIR / "unified.jsonl"
+    with _ForcedTicks(serve, CHAOS_TICKS) as forced:
+        pa.launches = 0
+        fin, engine, sched = serve.main(
+            SWAP_ARGV + ["--host-swap-pages", str(SWAP_TIER), "--trace",
+                         str(path)] + FAULT_ARGV)
+        steps = _chaos_launches(pa, [engine], "unified")
+    launches["unified chaos"] = pa.launches
+    plan = forced.plans[-1]
+    st = sched.stats
+    if {r.rid: r.out for r in fin} != swap_outs:
+        _fail("[chaos] unified: tokens differ from phase 4d's")
+    if not (sum(plan.fired.values()) > CHAOS_TICKS
+            and plan.stats["unresolved"] == 0
+            and st["decode_tick_retries"] >= CHAOS_TICKS):
+        _fail(f"[chaos] unified: plan {plan.stats}, sched {dict(st)}")
+    summary = _chaos_trace(path, plan, 1, "unified")
+    _chaos_drained(engine, "unified")
+    print(f"[chaos] unified, phase 4d's schedule, FaultPlan({CHAOS_RATE}, "
+          f"seed={CHAOS_SEED}) + {CHAOS_TICKS} forced decode ticks: tokens "
+          f"equal phase 4d's; faults fired by class {plan.fired} (total "
+          f"{sum(plan.fired.values())}), resolved {plan.resolved}, "
+          f"unresolved 0; retries {st['fault_retries']}, decode-tick "
+          f"retries {st['decode_tick_retries']}, fallbacks "
+          f"{st['fault_fallbacks']}, sheds {st['fault_sheds']}, horizon "
+          f"shrinks {st['horizon_shrinks']}; preemptions "
+          f"{st['preemptions']}, swap-outs {st['swap_outs']}; {steps} token "
+          f"steps; checker OK {summary}; pool and tier drained "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del fin, engine, sched
+    _free(torch)
+
+    # (2) disaggregation through the launcher, clean and with faults
+    images = None
+    for mode, extra in DISAGG_MODES:
+        t0 = time.perf_counter()
+        path = CHAOS_DIR / f"disagg_{mode}.jsonl"
+        with _ExportClock() as clock:
+            pa.launches = 0
+            fin, engine, dsch = serve.main(DISAGG_ARGV + extra
+                                           + ["--trace", str(path)])
+            p_eng = dsch.prefill.engine
+            steps = _chaos_launches(pa, [p_eng, engine], f"disagg {mode}")
+        launches[f"disagg {mode}"] = pa.launches
+        plan = dsch.faults
+        exports = list(zip(clock.ms, clock.images))
+        if {r.rid: r.out for r in fin} != serve_outs:
+            _fail(f"[chaos] disagg {mode}: tokens differ from phase 4's")
+        if dsch.stats["handoffs"] != 6 or p_eng.params is not engine.params:
+            _fail(f"[chaos] disagg {mode}: stats {dict(dsch.stats)}")
+        if plan is not None and not (sum(plan.fired.values()) > 0
+                                     and plan.stats["unresolved"] == 0):
+            _fail(f"[chaos] disagg {mode}: plan {plan.stats}")
+        summary = _chaos_trace(path, plan, 2, f"disagg {mode}")
+        for eng in (p_eng, engine):
+            _chaos_drained(eng, f"disagg {mode}")
+        print(f"[chaos] {card}: disagg {mode} (prefill {p_eng.max_seqs} "
+              f"slots / {p_eng.n_pages} pages, decode {engine.max_seqs} / "
+              f"{engine.n_pages}, overlap, traced): tokens equal phase 4's; "
+              f"{dsch.stats['handoffs']} handoffs, "
+              f"{dsch.stats['handoff_bytes']} B, stalled ticks "
+              f"{dsch.stats['handoff_stalled_ticks']}; export_image host ms "
+              f"(bytes) {[(round(ms, 3), im.nbytes) for ms, im in exports]}; "
+              f"token steps prefill {p_eng.stats['token_steps']} + decode "
+              f"{engine.stats['token_steps']} = {steps}; faults "
+              f"{plan.stats if plan is not None else None}; checker OK "
+              f"{summary} ({time.perf_counter() - t0:.1f} s)")
+        if mode == "clean":
+            prompts = {r.rid: r.prompt for r in fin}
+            images = clock.images
+            _import_probe(torch, engine, images, card)
+        del fin, engine, dsch, p_eng
+        _free(torch)
+
+    # (3) crash recovery, and (4) the new paths sync-free
+    cfg = serve.serve_config("qwen3-0.6b", smoke=False)
+    params = init_params(cfg, seed=0, device=dev)
+    for damage in (None, "bitflip"):
+        launches[f"recovery {damage or 'clean'}"] = _crash_recovery(
+            torch, pa, card, cfg, params, dev, prompts, serve_outs, damage)
+    _chaos_sync_free(torch, cfg, params, dev, images[0])
+    del params
+    _free(torch)
+    return launches
+
+
+def _import_probe(torch, engine, images, card):
+    """Device ms of each handed-off image's import scatter on the drained
+    decode pool (``restore_block`` of its pages, already on the device,
+    into slot 0, ``free_top`` put back after each call), queued behind a
+    spin kernel as phase 4d's restore probe is, beside a ``copy_`` of the
+    image's bytes device -> pinned host and back.  The pool's bookkeeping
+    is put back afterwards."""
+    from repro_torch.core.vbi.kvcache import restore_block
+
+    st = engine.state
+    saved = {f: getattr(st, f).clone() for f in (
+        "page_table", "seq_lens", "slot_active", "free_top",
+        "page_refcounts")}
+    rows = []
+    for img in images:
+        k = torch.from_numpy(img.k).to(engine.device)
+        v = torch.from_numpy(img.v).to(engine.device)
+
+        def restore():
+            restore_block(st, 0, k, v, img.n_pages, img.n_tokens)
+            st.free_top.add_(img.n_pages)
+        rows.append(_kernel_ms(torch, restore))
+    for f, t in saved.items():
+        getattr(st, f).copy_(t)
+    n_bytes = images[0].nbytes
+    dev_buf = torch.ones(n_bytes, dtype=torch.uint8, device=engine.device)
+    host = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    d2h = _kernel_ms(torch, lambda: host.copy_(dev_buf, non_blocking=True))
+    h2d = _kernel_ms(torch, lambda: dev_buf.copy_(host, non_blocking=True))
+    print(f"[chaos] {card}: import_image scatter device ms per handed-off "
+          f"image ({images[0].n_pages} page, {n_bytes} B each): "
+          f"{[round(ms, 4) for ms in rows]}; copy_ of {n_bytes} B device "
+          f"-> pinned host {d2h:.4f} ms, pinned host -> device {h2d:.4f} "
+          f"ms; byte bound of the scatter "
+          f"{2 * n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+
+
+def _crash_recovery(torch, pa, card, cfg, params, dev, prompts, serve_outs,
+                    damage):
+    """5 of phase 4's requests on 3 slots (horizon 4, 97 pages): a snapshot
+    every 3 ticks, a crash after 6 with request 4 arriving after the last
+    snapshot and one more tick; a fresh engine rebuilt from the newest
+    intact snapshot and the journal.  With ``damage`` one snapshot leg is
+    bit-flipped on disk first.  The merged tokens must equal phase 4's.
+    Returns the kernel's launches over both runs."""
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.serve.recovery import (ServeSnapshotter,
+                                            recover_scheduler)
+    from repro_torch.serve.scheduler import Scheduler
+    from repro_torch.serve.telemetry import Telemetry, check_trace
+
+    t0 = time.perf_counter()
+    tag = f"recovery {damage or 'clean'}"
+    directory = CHAOS_DIR / f"snap_{damage or 'clean'}"
+
+    def mk(telem):
+        eng = PagedEngine(cfg, params, page_size=8, max_seqs=3, n_pages=97,
+                          attn_impl="kernel", device=dev)
+        return eng, Scheduler(eng, prefill_chunk=8, decode_horizon=4,
+                              telemetry=telem)
+
+    n_total = 0
+    telem = Telemetry(trace=True)
+    pa.launches = 0
+    eng, sched = mk(telem)
+    for rid in range(4):
+        sched.add_request(prompts[rid], 16, rid=rid)
+    snap = ServeSnapshotter(sched, directory, every=CRASH_SNAP_EVERY, keep=2)
+    save_ms = []
+    for _ in range(CRASH_TICKS):
+        sched.step()
+        t1 = time.perf_counter()
+        if snap.tick():
+            save_ms.append((time.perf_counter() - t1) * 1e3)
+    sched.add_request(prompts[4], 16, rid=4)
+    sched.step()
+    torch.cuda.synchronize()
+    _chaos_launches(pa, [eng], f"{tag} crashed run")
+    n_total += pa.launches
+    journal = list(telem.tracer.events)
+    del eng, sched, snap
+    _free(torch)
+    # -- the crash: nothing below touches the first engine --
+    step_dir = directory / f"step_{latest_step(directory)}"
+    manifest = json.loads((step_dir / "manifest.json").read_text())
+    legs = [e for e in manifest["leaves"] if "_k" in e["key"]]
+    snap_bytes = sum(p.stat().st_size for p in step_dir.iterdir())
+    if not legs:
+        _fail(f"[chaos] {tag}: no live slot in the snapshot")
+    if damage == "bitflip":
+        leaf = step_dir / legs[0]["file"]
+        raw = bytearray(leaf.read_bytes())
+        raw[-1] ^= 0x01
+        leaf.write_bytes(bytes(raw))
+    telem2 = Telemetry(trace=True)
+    pa.launches = 0
+    eng2, s2 = mk(telem2)
+    finished = recover_scheduler(s2, directory, journal=journal)
+    n_images = sum(r.image is not None for r in s2.queue)
+    out = dict(finished)
+    out.update({r.rid: r.out for r in s2.run()})
+    _chaos_launches(pa, [eng2], f"{tag} restarted run")
+    n_total += pa.launches
+    want = {rid: serve_outs[rid] for rid in range(5)}
+    if out != want or n_images != len(legs) - (damage == "bitflip") or \
+            s2.stats["image_imports"] != n_images:
+        _fail(f"[chaos] {tag}: merged tokens equal phase 4's "
+              f"{out == want}; images {n_images} of {len(legs)} legs, "
+              f"imported {s2.stats['image_imports']}")
+    eng2.alloc.attach_tracer(None)
+    summary = check_trace(telem2.tracer.events)
+    _chaos_drained(eng2, tag)
+    print(f"[chaos] {card}: {tag}: snapshot every {CRASH_SNAP_EVERY} ticks, "
+          f"crash after {CRASH_TICKS} + 1; step {step_dir.name}: "
+          f"{len(legs)} live leg(s), {snap_bytes} B on disk; host ms per "
+          f"save {[round(ms, 3) for ms in save_ms]}; restarted from "
+          f"{len(finished)} finished, {n_images} image(s), the rest "
+          f"re-prefilled or replayed from the journal; merged tokens equal "
+          f"phase 4's; checker OK {summary} ({time.perf_counter() - t0:.1f}"
+          f" s)")
+    del eng2, s2
+    _free(torch)
+    return n_total
+
+
+def _chaos_sync_free(torch, cfg, params, dev, img):
+    """With every host sync an error, while a decode horizon's event is
+    pending (a spin kernel queued behind it): the decode scheduler's
+    staged ``_admit_image`` of a handed-off image into a free slot, then a
+    ``_call_vbi``-wrapped reserve that meets 2 forced faults and retries.
+    The adopted pages equal the image bit for bit."""
+    import numpy as np
+
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.scheduler import Request, Scheduler
+
+    engine = PagedEngine(cfg, params, page_size=8, max_seqs=3, n_pages=97,
+                         attn_impl="kernel", device=dev)
+    plan = FaultPlan({}, seed=0)
+    sched = Scheduler(engine, prefill_chunk=8, decode_horizon=8,
+                      overlap=True, faults=plan)
+    sched.add_request(list(range(1, 21)), max_new=40)
+    while sched._pending is None:
+        sched.step()                         # decoding
+    decode_many = engine.decode_many
+
+    def spun(*args):
+        block = decode_many(*args)
+        torch.cuda._sleep(int(400e6))        # about 0.2 s at 2 GHz
+        return block
+    engine.decode_many = spun
+    sched.step()                             # a horizon behind the spin
+    engine.decode_many = decode_many
+    event = sched._pending[1]
+    req = Request(99, list(img.tokens[:img.n_tokens]),
+                  max_new=16, out=list(img.tokens[img.n_tokens:]),
+                  image=img)
+    sched.queue.append(req)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sched._admit()
+        slot = next(s for s, st in sched.slots.items() if st.req is req)
+        blk = sched.slots[slot].block
+        plan.force("alloc", 2)
+        sched._call_vbi(lambda: engine.alloc.reserve_pages(
+            blk, blk.reserved_pages + 1))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pending = not event.query()
+    torch.cuda.synchronize()
+    back = engine.alloc.snapshot_image(blk)
+    ok = (pending and np.array_equal(back.k, img.k)
+          and np.array_equal(back.v, img.v)
+          and sched.stats["image_imports"] == 1
+          and sched.stats["fault_retries"] == 2
+          and plan.stats["unresolved"] == 0)
+    if not ok:
+        _fail(f"[chaos] sync-free: event pending at return {pending}, "
+              f"pages equal the image {np.array_equal(back.k, img.k)}, "
+              f"sched {dict(sched.stats)}, plan {plan.stats}")
+    done = sched.run()
+    if sorted(len(r.out) for r in done) != [16, 40]:
+        _fail("[chaos] the sync-free run did not finish")
+    _chaos_drained(engine, "sync-free")
+    print(f"[sync] chaos: the decode scheduler's _admit_image of a "
+          f"{img.n_pages}-page image ({img.nbytes} B) and a _call_vbi "
+          f"reserve through 2 forced alloc faults under "
+          f"set_sync_debug_mode('error') while a horizon's event was "
+          f"pending: no host sync, the event still pending at return, the "
+          f"adopted pages equal the image bit for bit")
+    del engine, sched
+    _free(torch)
+
+
 # -- the mixed stacks: ring pool, recurrent state, MoE -----------------------
 #: the ring pool's kernel shapes at the launcher's page size of 8
 #: (configs/*.py): (label, (n_kv, g, d, ps), ring pages = window / 8)
@@ -2506,8 +2928,13 @@ def main() -> int:
     print(f"[kernel] phase took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches, engine = phase_serve(torch, pa, card,
-                                   lambda: serve.main(SERVE_ARGV))
+    box = {}
+
+    def serve_run():
+        box["out"] = serve.main(SERVE_ARGV)
+        return box["out"]
+    launches, engine = phase_serve(torch, pa, card, serve_run)
+    serve_outs = {r.rid: r.out for r in box.pop("out")[0]}
     phase_sync_free(torch, engine, card)
     del engine
     torch.cuda.empty_cache()
@@ -2549,6 +2976,11 @@ def main() -> int:
 
     _free(torch)
     t0 = time.perf_counter()
+    chaos_launches = phase_chaos(torch, pa, card, dev, serve_outs, swap_outs)
+    print(f"[chaos] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
     ring_err, ring_rows, hetero_launches = run_hetero()
     print(f"[hetero] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -2572,6 +3004,8 @@ def main() -> int:
                   for mode, n in swap_launches.items()},
                **{f"qwen3-0.6b traffic {mode}": n
                   for mode, n in traffic_launches.items()},
+               **{f"qwen3-0.6b chaos {mode}": n
+                  for mode, n in chaos_launches.items()},
                **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -45,9 +45,9 @@ from ...device import resolve_device, stage
 from .address_space import VBProps
 from .kvcache import (PagedKVManager, admit_slot, aux_swap_charge,
                       clone_page_cow, init_serve_state, kv_payload_checksum,
-                      make_ring_table, map_prefix, pad_block_image,
-                      release_pages, release_slot, restore_aux, restore_block,
-                      retain_pages, snapshot_aux, snapshot_block)
+                      make_ring_table, map_prefix, release_pages,
+                      release_slot, restore_aux, restore_block, retain_pages,
+                      snapshot_aux, snapshot_block)
 from .mtl import MTL, PhysicalMemory
 
 DEFAULT_BLOCK_PROPS = (VBProps.KV_CACHE | VBProps.EVICTABLE
@@ -754,8 +754,9 @@ class VBIAllocator:
     def import_image(self, img: BlockImage, slot: int,
                      reserve_pages: Optional[int] = None) -> VirtualBlock:
         """Adopt an image onto ``slot`` as a new block of this pool: charge
-        the mirror, pop fresh pages and scatter the payload (padded to this
-        pool's row), stamping this pool's layer-kind properties on the
+        the mirror, pop fresh pages and scatter the payload (its pages
+        must fit one row of this pool; only they are staged to the
+        device), stamping this pool's layer-kind properties on the
         declared ones.  Idempotent by (pool, bid, lineage): a re-delivered
         image whose block is still resident returns that block.  A sealed
         image that fails its checksum raises :class:`ImageIntegrityError`
@@ -785,14 +786,19 @@ class VBIAllocator:
         if (img.props & kinds) != (pool_kinds & kinds):
             raise ValueError("image and destination pool disagree on layer "
                              "kinds")
-        k, v = pad_block_image(img.k, img.v, img.n_pages,
-                               self.pool.max_pages)
+        # the scatter writes only the image's pages, so the image needs no
+        # padding to this pool's row (what crosses to the device is the
+        # image's own bytes); it only has to fit one row
+        if img.n_pages > self.pool.max_pages:
+            raise ValueError(f"image holds {img.n_pages} pages > "
+                             f"destination row width {self.pool.max_pages}")
         need = reserve_pages if reserve_pages is not None else img.n_pages
         self._charge(need, img.n_pages)
         blk = VirtualBlock(self._next_bid, slot,
                            (img.props & ~_SHARING) | pool_kinds)
         self._next_bid += 1
-        self._scatter(slot, k, v, img.aux, img.n_pages, img.n_tokens)
+        self._scatter(slot, img.k, img.v, img.aux, img.n_pages,
+                      img.n_tokens)
         blk.n_tokens = img.n_tokens
         blk.reserved_pages = need
         blk.vbid = self.mtl.enable_vb(0, blk.props)

@@ -11,12 +11,17 @@
         --host-swap-pages 64                       # preemption to host swap
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --traffic poisson --trace t.jsonl --metrics    # open loop, traced
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --disagg --faults --trace t.jsonl --metrics    # two engines, chaos
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --no-smoke --disagg --faults --trace OUT --metrics      # on the card
 
-Counterpart of ``repro/launch/serve.py``: the closed-loop batch and the
+Counterpart of ``repro/launch/serve.py``: the closed-loop batch, the
 open-loop and observability modes (``--traffic``, ``--trace``,
-``--metrics``).  The reference's ``--legacy``, ``--disagg`` and
-``--faults`` come with ROADMAP.md § A9-A10 and ``--mesh-shape`` with
-§ A14.  ``serve/engine.py`` is driven by ``serve/scheduler.py`` —
+``--metrics``), the disaggregated topology (``--disagg``) and the fault
+plane (``--faults``).  The reference's ``--legacy`` (the per-sequence
+path) waits for ROADMAP.md § A15 and ``--mesh-shape`` for § A14.
+``serve/engine.py`` is driven by ``serve/scheduler.py`` —
 admission, chunked prefill, the fused decode horizon, eviction and
 preemption — with page lifecycle through
 ``core/vbi/blocks.py::VBIAllocator`` and, as in the reference,
@@ -53,6 +58,22 @@ allocator's conservation invariants on exit; ``--trace-format chrome``
 writes Chrome ``trace_event`` JSON instead, and ``--metrics`` prints the
 metrics-registry snapshot.  Offline: ``python -m
 repro_torch.serve.telemetry OUT [--chrome OUT.json]``.
+
+``--disagg`` serves on two engines over one set of device weights: prompts
+prefill on a prefill engine of ``--prefill-slots`` slots and ``1 + slots x
+(8 + shared prefix / 8)`` pages; at prompt completion each request's exact
+state moves as one sealed ``BlockImage`` (one ``export_image``, one
+``import_image`` scatter) to a decode engine of ``--decode-slots`` slots
+and ``1 + slots x (32 + shared prefix / 8)`` pages (``--n-pages`` and
+``--max-pages-per-seq`` size it instead when given) and the host tier of
+``--host-swap-pages``; decode-pool pressure stalls the handoff, never
+prefill.  Both pools record
+into one trace.  ``--faults`` injects seeded faults at every allocator
+boundary of every engine and at the decode tick (``--fault-rate`` per
+crossing, ``--fault-seed``; ``--fault-model simdram:node=22`` takes the
+rate from the SIMDRAM reliability model instead) and recovers each
+exactly — bounded retry, exact fallback or an accounted shed; the run
+prints the plan's counts and raises if a fault stays unresolved.
 """
 from __future__ import annotations
 
@@ -66,7 +87,9 @@ import numpy as np
 
 from ..configs import ARCH_IDS, get_config, smoke_config
 from ..models.model import init_params
+from ..serve.disagg import DisaggScheduler
 from ..serve.engine import PagedEngine
+from ..serve.faults import plan_from_args
 from ..serve.prefix_cache import PrefixCache
 from ..serve.scheduler import Scheduler
 from ..serve.telemetry import Telemetry, check_trace
@@ -98,6 +121,14 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode: prompts prefill on "
+                         "one engine, each request's exact state hands off "
+                         "as one BlockImage to a second engine for decode")
+    ap.add_argument("--prefill-slots", type=int, default=6,
+                    help="prefill-engine slots for --disagg")
+    ap.add_argument("--decode-slots", type=int, default=3,
+                    help="decode-engine slots for --disagg")
     ap.add_argument("--prefill-chunk", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=4)
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -151,6 +182,21 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics", action="store_true",
                     help="print the metrics-registry snapshot (counters, "
                          "gauges with high-water marks, latency histograms)")
+    ap.add_argument("--faults", action="store_true",
+                    help="chaos mode: seeded faults at every allocator "
+                         "boundary (alloc, swap I/O, image loss and "
+                         "corruption) and at the decode tick, each recovered "
+                         "exactly (retry, re-prefill, the degradation "
+                         "ladder); tokens equal the fault-free run's")
+    ap.add_argument("--fault-rate", type=float, default=0.05,
+                    help="per-crossing fault probability for --faults, the "
+                         "same for every class")
+    ap.add_argument("--fault-seed", type=int, default=7,
+                    help="seed of the rate-independent fault streams")
+    ap.add_argument("--fault-model", default=None,
+                    help="take the fault rate from the SIMDRAM reliability "
+                         "model instead of --fault-rate, e.g. "
+                         "'simdram:node=22' (implies --faults)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
@@ -177,7 +223,12 @@ def main(argv=None):
                  device=args.device, traffic=args.traffic, rate=args.rate,
                  slo_ttft=args.slo_ttft, slo_tpot=args.slo_tpot,
                  trace=args.trace, trace_format=args.trace_format,
-                 metrics=args.metrics)
+                 metrics=args.metrics, disagg=args.disagg,
+                 prefill_slots=args.prefill_slots,
+                 decode_slots=args.decode_slots,
+                 faults=args.faults or args.fault_model is not None,
+                 fault_rate=args.fault_rate, fault_seed=args.fault_seed,
+                 fault_model=args.fault_model)
 
 
 def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
@@ -190,7 +241,10 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
           device="cuda", traffic: Optional[str] = None, rate: float = 2.0,
           slo_ttft: float = float("inf"), slo_tpot: float = float("inf"),
           trace: Optional[str] = None, trace_format: str = "jsonl",
-          metrics: bool = False):
+          metrics: bool = False, disagg: bool = False,
+          prefill_slots: int = 6, decode_slots: int = 3,
+          faults: bool = False, fault_rate: float = 0.05,
+          fault_seed: int = 7, fault_model: Optional[str] = None):
     """The launcher's serve on given params (on ``device``): ``requests``
     prompts of ``shared_prefix`` system tokens (drawn first, shared by
     all) and ``prompt_len`` tokens of their own, drawn from ``seed``, each
@@ -202,18 +256,32 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     are instead ``make_trace``'s seeded mixed workload, arriving open-loop
     at ``rate`` per second on the wall clock.  ``trace`` (a path) records
     and checks the telemetry trace; ``metrics`` prints the registry.
-    Returns ``(finished_requests, engine, scheduler)``."""
+    ``disagg`` serves on a prefill engine (``prefill_slots``) and a decode
+    engine (``decode_slots``, ``n_pages``, the host tier) sharing
+    ``params``; ``faults`` installs a seeded fault plan (``fault_rate``
+    or ``fault_model``, ``fault_seed``) on every allocator.  Returns
+    ``(finished_requests, engine, scheduler)``: under ``disagg`` the
+    decode engine and the ``DisaggScheduler`` (its ``prefill.engine`` is
+    the prefill engine)."""
     rng = np.random.default_rng(seed)
     system = rng.integers(0, cfg.vocab, shared_prefix).tolist()
     prompts = [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
                for _ in range(requests)]
     page_size = 8
+    slots = decode_slots if disagg else batch_slots
     if n_pages is None:
-        n_pages = 1 + batch_slots * (32 + shared_prefix // page_size)
+        n_pages = 1 + slots * (32 + shared_prefix // page_size)
     engine = PagedEngine(
-        cfg, params, page_size=page_size, max_seqs=batch_slots,
+        cfg, params, page_size=page_size, max_seqs=slots,
         n_pages=n_pages, max_pages_per_seq=max_pages_per_seq,
         attn_impl=attn_impl, host_swap_pages=host_swap_pages, device=device)
+    p_eng = None
+    if disagg:
+        # a prompt-sized pool on many slots, on the same weights
+        p_eng = PagedEngine(
+            cfg, params, page_size=page_size, max_seqs=prefill_slots,
+            n_pages=1 + prefill_slots * (8 + shared_prefix // page_size),
+            attn_impl=attn_impl, device=device)
     geom = engine.geom
     print(f"[serve] {cfg.name} on {engine.device} — attn_impl={attn_impl}; "
           f"geometry: n_full {geom.n_full}, n_ring {geom.n_ring}, n_rg "
@@ -226,13 +294,28 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
         cache = None
     telem = (Telemetry(trace=trace is not None)
              if trace is not None or metrics else None)
-    sched = Scheduler(engine, prefill_chunk=prefill_chunk,
-                      prefix_cache=cache, decode_horizon=decode_horizon,
-                      overlap=overlap, telemetry=telem)
+    plan = None
+    if faults:
+        plan = plan_from_args(fault_rate, fault_seed, model=fault_model)
+        print(f"[serve] chaos mode: fault rates "
+              f"{ {k: f'{v:g}' for k, v in plan.rates.items()} } "
+              f"seed={fault_seed}")
+    if disagg:
+        print(f"[serve] disagg topology: prefill {prefill_slots} slots/"
+              f"{p_eng.n_pages} pages -> decode {decode_slots} slots/"
+              f"{engine.n_pages} pages (BlockImage handoff)")
+        sched = DisaggScheduler(p_eng, engine, prefill_chunk=prefill_chunk,
+                                decode_horizon=decode_horizon,
+                                overlap=overlap, prefix_cache=cache,
+                                telemetry=telem, faults=plan)
+    else:
+        sched = Scheduler(engine, prefill_chunk=prefill_chunk,
+                          prefix_cache=cache, decode_horizon=decode_horizon,
+                          overlap=overlap, telemetry=telem, faults=plan)
     t0 = time.perf_counter()
     if traffic is not None:
         finished = _run_traffic(cfg, sched, traffic, requests, rate, seed,
-                                slo_ttft, slo_tpot)
+                                slo_ttft, slo_tpot, overlap)
     else:
         for p in prompts:
             sched.add_request(p, max_new=max_new)
@@ -242,6 +325,12 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
         print(f"[serve] req {req.rid} done: {req.prompt[-4:]} -> "
               f"{req.out[:8]}...")
     n_out = sum(len(r.out) for r in finished)
+    if p_eng is not None:
+        print(f"[serve] prefill engine stats {p_eng.stats} allocator stats "
+              f"{p_eng.alloc.stats}")
+        print(f"[serve] disagg stats {dict(sched.stats)} — prefill sched "
+              f"{dict(sched.prefill.stats)} / decode sched "
+              f"{dict(sched.decode.stats)}")
     print(f"[serve] engine stats {engine.stats} allocator stats "
           f"{engine.alloc.stats} sched stats {sched.stats}")
     if cache is not None:
@@ -256,6 +345,11 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
               f"({a['swapped_in_pages']} pages, {a['swap_bytes_in']} B), "
               f"rejects {a['swap_rejects']}; prefill tokens "
               f"{sched.stats['prefill_tokens']}")
+    if plan is not None:
+        print(f"[serve] fault plan: {plan.stats}")
+        if plan.stats["unresolved"]:
+            raise RuntimeError(f"the chaos run left {plan.stats['unresolved']}"
+                               f" injected fault(s) unresolved")
     if telem is not None:
         _emit_telemetry(telem, trace, trace_format, metrics)
     print(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
@@ -264,7 +358,8 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
 
 
 def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
-                 seed: int, slo_ttft: float, slo_tpot: float):
+                 seed: int, slo_ttft: float, slo_tpot: float,
+                 overlap: bool):
     """Open-loop serving on the wall clock: requests arrive whether or not
     the engine has capacity, and the user-visible numbers are latency
     percentiles and goodput under the SLO.  Returns the finished
@@ -276,7 +371,7 @@ def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
         mix[tr.profile] = mix.get(tr.profile, 0) + 1
     print(f"[serve] open-loop {process} traffic: {requests} requests @ "
           f"{rate:g} req/s, mix {mix}, overlap "
-          f"{'on' if sched.overlap else 'off'}")
+          f"{'on' if overlap else 'off'}")
     # wall clock; the latency histograms join the scheduler's registry
     drv = TrafficDriver(sched, trace,
                         accountant=LatencyAccountant(sched.metrics))

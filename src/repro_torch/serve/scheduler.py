@@ -75,8 +75,25 @@ one, receives tick spans, request events and the allocator's block
 events.  Recording only appends to lists and reads host mirrors and
 ``time.perf_counter``: it adds no host sync and changes no decision.
 
-Not in this slice (ROADMAP.md § A9): the fault plane (``faults=``
-raises), load shedding and the ``on_shed`` hook.
+The fault plane (``faults=``, a :class:`~repro_torch.serve.faults.
+FaultPlan`, installed on the allocator): every allocator boundary the
+scheduler crosses — the admission reserve, swap-in, ``import_image``,
+swap-out, the horizon reserve and the prefill-chunk reserve — runs under
+the bounded retry of ``retry=`` (a :class:`~repro_torch.serve.recovery.
+RetryPolicy`; backoff accounted, never slept), and an exhausted retry
+takes an exact fallback: shrink the horizon to 1 for ``DEGRADE_TICKS``
+ticks then load-shed one queued request (``shed_policy``, ``on_shed``),
+re-prefill, discard, skip the slot's horizon, or stall its prefill chunk.
+The ``decode_tick`` class fires and is resolved before a horizon is
+planned, so nothing is ever dispatched twice.  Every fault and its
+resolution land in the trace, which the checker replays.
+
+Disaggregation: ``handoff(req, block)`` is called at eviction; when it
+returns True the hook took custody (it exported the block as a
+``BlockImage``) and the request continues on another engine.  A request
+carrying an ``image`` is admitted by ``import_image`` — one staged device
+scatter, no re-prefill — so it can be admitted under the overlap's
+in-flight horizon.
 """
 from __future__ import annotations
 
@@ -89,29 +106,40 @@ import numpy as np
 import torch
 
 from ..core.vbi.address_space import VBProps
-from ..core.vbi.blocks import DEFAULT_BLOCK_PROPS, VirtualBlock
+from ..core.vbi.blocks import (DEFAULT_BLOCK_PROPS, ImageIntegrityError,
+                               VirtualBlock)
 from ..core.vbi.kvcache import tier_nbytes
 from ..device import stage
 from .engine import PagedEngine
+from .faults import install_faults
 from .prefix_cache import PrefixCache, PrefixMatch, _Node
+from .recovery import RetryExhausted, RetryPolicy, retry_call
 from .telemetry import MetricsRegistry, StatsView, Telemetry
 
-#: ``Scheduler.stats`` keys, pinned (the reference's, less the fault
-#: plane's, which come with ROADMAP.md § A9): the dict-compatible face
-#: over the registry's ``sched.*`` counters
+#: ``Scheduler.stats`` keys, pinned (the reference's): the dict-compatible
+#: face over the registry's ``sched.*`` counters
 _STAT_KEYS = ("preemptions", "steps", "prefix_hits",
               "prefix_tokens_reused", "cache_evicted_pages", "swap_outs",
               "swap_ins", "prefill_tokens", "host_syncs",
               "prefill_host_reads", "prefill_reads_skipped",
               "horizon_truncations", "overlap_staged_ticks",
-              "sync_device_ready", "sync_device_wait")
+              "sync_device_ready", "sync_device_wait", "image_imports",
+              "fault_retries", "fault_fallbacks", "fault_sheds",
+              "horizon_shrinks", "decode_tick_retries")
+
+#: ticks the degradation ladder holds the horizon at 1 after an
+#: admission-path retry exhaustion, before restoring ``decode_horizon``;
+#: a second exhaustion inside the window escalates to load-shedding
+DEGRADE_TICKS = 8
 
 
 def check_request_fits(engine: PagedEngine, alloc, prompt_len: int,
                        max_new: int, shareable_pages: int = 0) -> None:
-    """Intake impossibility check: refuse now what no schedule could ever
-    place.  Only full-attention layers consume pool pages, so the checks
-    bind only when the stack has any."""
+    """Intake impossibility check, shared by the unified scheduler and the
+    disaggregated topology (which checks against the decode engine, where
+    the request's full lifetime lives): refuse now what no schedule could
+    ever place.  Only full-attention layers consume pool pages, so the
+    checks bind only when the stack has any."""
     if not engine.has_full:
         return
     lifetime = prompt_len + max_new
@@ -144,6 +172,9 @@ class Request:
     # a block demoted to the host swap tier at preemption rides along here
     # and is restored (swap_in) at re-admission
     block: Optional[VirtualBlock] = None
+    # an exported BlockImage riding a disaggregated handoff (or a crash
+    # recovery): admission adopts it by import_image instead of prefilling
+    image: Optional[object] = None
 
     @property
     def tokens(self) -> List[int]:
@@ -171,11 +202,9 @@ class Scheduler:
                  block_props: VBProps = DEFAULT_BLOCK_PROPS,
                  decode_horizon: int = 1, overlap: bool = False,
                  on_tokens=None, on_finish=None,
-                 telemetry: Optional[Telemetry] = None, faults=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "faults is not ported yet (ROADMAP.md § A9); pass "
-                "faults=None")
+                 telemetry: Optional[Telemetry] = None,
+                 handoff=None, faults=None,
+                 retry: Optional[RetryPolicy] = None):
         if prefix_cache is not None:
             if prefix_cache.page_size != engine.page_size:
                 raise ValueError(
@@ -201,11 +230,27 @@ class Scheduler:
         self.overlap = overlap
         self.on_tokens = on_tokens        # streaming hooks (serve/traffic.py)
         self.on_finish = on_finish
+        # the disaggregation hook: called at eviction with (req, block);
+        # True means the hook took custody (the request continues on
+        # another engine) — not finished here
+        self.handoff = handoff
         self.queue: Deque[Request] = deque()
         self.slots: Dict[int, _SlotState] = {}
         self.finished: List[Request] = []
         self._next_rid = 0
         self._admit_seq = 0
+        # the fault plane: the plan interposes on the allocator's
+        # boundaries; this scheduler owns retry and fallback policy, the
+        # degradation ladder (horizon -> 1 before shedding) and the
+        # decode-tick fault class.  faults=None costs one check per site
+        self.faults = faults
+        self.retry = retry or RetryPolicy()
+        self._degrade_until = 0            # tick the horizon cap lifts at
+        self.shed_policy = None            # callable(queued) -> victim
+        self.on_shed = None                # streaming hook (traffic.py)
+        self.shed: List[Request] = []
+        if faults is not None:
+            install_faults(self.alloc, faults)
         # the in-flight horizon (overlap mode): the un-read [K, S] device
         # token block, the event recorded at its dispatch, and the slot ids
         # and per-slot step budgets it was dispatched with, reconciled at
@@ -305,6 +350,78 @@ class Scheduler:
                      prompt=list(prompt))
         return rid
 
+    # -- fault plane: retry, degradation ladder, shedding -------------------
+    @property
+    def effective_horizon(self) -> int:
+        """``decode_horizon``, unless the degradation ladder is holding
+        the engine at K=1 after an admission-path retry exhaustion."""
+        if self.stats["steps"] < self._degrade_until:
+            return 1
+        return self.decode_horizon
+
+    def _call_vbi(self, fn):
+        """One allocator boundary op under the bounded-retry policy:
+        transient injected faults are retried (backoff recorded, never
+        slept) and resolved ``retry_ok``; exhaustion raises
+        :class:`~repro_torch.serve.recovery.RetryExhausted` to the site's
+        fallback.  Without a fault plan this is exactly ``fn()``."""
+        if self.faults is None:
+            return fn()
+        out, fired = retry_call(fn, policy=self.retry)
+        if fired:
+            self.faults.resolve(fired, "retry_ok", tracer=self.tracer,
+                                attempts=len(fired),
+                                backoff=sum(f.backoff for f in fired))
+            self.stats["fault_retries"] += len(fired)
+        return out
+
+    def _resolve_fallback(self, faults, detail: str) -> None:
+        """Close out exhausted or terminal faults whose recovery is an
+        exact fallback (skip, discard, re-prefill)."""
+        faults = [f for f in (faults or []) if f is not None]
+        if self.faults is not None and faults:
+            self.faults.resolve(faults, "fallback", tracer=self.tracer,
+                                detail=detail)
+            self.stats["fault_fallbacks"] += len(faults)
+
+    def _fault_fallback_admit(self, faults) -> None:
+        """The degradation ladder for an admission-path retry exhaustion:
+        first hold the decode horizon at 1 for ``DEGRADE_TICKS`` ticks
+        (frees span headroom, keeps every request); a second exhaustion
+        inside the window load-sheds one queued request.  The request at
+        the queue head stays there in the shrink case and tries again next
+        tick with fresh draws."""
+        if self.stats["steps"] >= self._degrade_until:
+            self._degrade_until = self.stats["steps"] + DEGRADE_TICKS
+            self.stats["horizon_shrinks"] += 1
+            self._resolve_fallback(faults, detail="horizon_shrink")
+        else:
+            self._shed_one(faults)
+
+    def _shed_one(self, faults) -> None:
+        """Load-shed one queued request — the ladder's last rung.  The
+        victim comes from ``shed_policy`` (the traffic driver installs the
+        SLO-aware one) or is the queue head; its block or image custody is
+        released, and the shed is accounted in the trace (``recover``
+        outcome ``shed`` and a ``shed`` request event), never silent."""
+        victim = (self.shed_policy(list(self.queue)) if self.shed_policy
+                  else self.queue[0])
+        self.queue.remove(victim)
+        if victim.block is not None:
+            self.alloc.free(victim.block)
+            victim.block = None
+        if victim.image is not None:
+            self.alloc.drop_image(victim.image)
+            victim.image = None
+        self.shed.append(victim)
+        self.stats["fault_sheds"] += 1
+        if self.faults is not None and faults:
+            self.faults.resolve(faults, "shed", tracer=self.tracer,
+                                rid=victim.rid)
+        self._req_ev("shed", victim, n_out=len(victim.out))
+        if self.on_shed is not None:
+            self.on_shed(victim)
+
     # -- page budgeting (delegated to the allocator's host mirror) -----------
     def _budget_for(self, req: Request, n_shared: int = 0,
                     horizon: int = 1) -> int:
@@ -322,8 +439,9 @@ class Scheduler:
         """Admission budget: the full-horizon span first (evicting cold
         cache on shortfall); if it still does not fit, the minimum viable
         budget — the first horizon gets truncated, which beats leaving
-        the slot idle."""
-        budget = self._budget_for(req, n_shared, self.decode_horizon)
+        the slot idle.  Shared by every admission path (fresh, swap-resume,
+        image)."""
+        budget = self._budget_for(req, n_shared, self.effective_horizon)
         if budget > self.alloc.free_pages:
             self._evict_cache(budget - self.alloc.free_pages)
         if budget > self.alloc.free_pages:
@@ -380,6 +498,10 @@ class Scheduler:
     def _admit_loop(self, free_slots: List[int]) -> None:
         while self.queue and free_slots:
             req = self.queue[0]
+            if req.image is not None:
+                if not self._admit_image(req, free_slots):
+                    break
+                continue
             if req.block is not None:
                 if not self._admit_swapped(req, free_slots):
                     break
@@ -408,10 +530,23 @@ class Scheduler:
             self.queue.popleft()
             slot = free_slots.pop(0)
             blk = self.alloc.alloc(slot, props=self.block_props)
-            self.alloc.reserve_pages(blk, budget)
             st = _SlotState(req, blk, prefill_len=len(req.tokens),
                             admit_seq=self._admit_seq)
             self._admit_seq += 1
+            try:
+                self._call_vbi(
+                    lambda: self.alloc.reserve_pages(blk, budget))
+            except RetryExhausted as e:
+                # nothing committed yet: undo the admission and climb the
+                # degradation ladder; the request keeps its place at the
+                # queue head and tries again with fresh draws
+                if match is not None:
+                    self.prefix_cache.unpin(match.all_nodes())
+                self.alloc.free(blk)
+                free_slots.insert(0, slot)
+                self.queue.appendleft(req)
+                self._fault_fallback_admit(e.faults)
+                break
             if match is not None and match.n_tokens:
                 ps = self.engine.page_size
                 if match.pages:
@@ -443,7 +578,18 @@ class Scheduler:
         self.queue.popleft()
         slot = free_slots.pop(0)
         blk, req.block = req.block, None
-        self.alloc.swap_in(blk, slot, reserve_pages=budget)
+        try:
+            self._call_vbi(
+                lambda: self.alloc.swap_in(blk, slot, reserve_pages=budget))
+        except RetryExhausted as e:
+            # the tier read keeps failing: give up the host image and
+            # re-prefill the committed tokens (exact, as discard is).
+            # swap_in raised before any change, so the block just frees
+            self.alloc.free(blk)
+            free_slots.insert(0, slot)
+            self.queue.appendleft(req)
+            self._resolve_fallback(e.faults, detail="reprefill")
+            return True                 # fresh-admission path, same tick
         st = _SlotState(req, blk, prefill_len=len(req.tokens),
                         fed=blk.n_tokens, admit_seq=self._admit_seq)
         self._admit_seq += 1
@@ -453,9 +599,64 @@ class Scheduler:
                      restored_tokens=st.fed, budget_pages=budget)
         return True
 
+    def _admit_image(self, req: Request, free_slots: List[int]) -> bool:
+        """Adopt a handed-off (or recovered) BlockImage: budget the full
+        span like any admission, then scatter the image's exact state into
+        a fresh block of this pool — no re-prefill.  The checksum is
+        verified on the host image before any page is charged, and the
+        scatter only enqueues device work, so this runs under the
+        overlap's in-flight horizon.  False applies backpressure at the
+        handoff boundary: the image waits at the queue head."""
+        budget = self._degraded_budget(req)
+        if budget > self.alloc.free_pages:
+            return False
+        slot = free_slots[0]
+        img = req.image
+        try:
+            blk = self._call_vbi(
+                lambda: self.alloc.import_image(img, slot,
+                                                reserve_pages=budget))
+        except RetryExhausted as e:
+            # the image keeps getting lost in transit: drop it and
+            # re-prefill the committed tokens (exact under greedy decode)
+            self.alloc.drop_image(img)
+            req.image = None
+            self._resolve_fallback(e.faults, detail="reprefill")
+            return True                 # fresh-admission path, same tick
+        except ImageIntegrityError as e:
+            # a corrupt image is terminal, not transient: the same bits
+            # cannot verify on a retry.  import_image raised before any
+            # charge; drop it and re-prefill
+            self.alloc.drop_image(img)
+            req.image = None
+            faults = list(getattr(e, "pending_faults", []))
+            if e.fault_id is not None:
+                faults.append(e.fault_id)
+            self._resolve_fallback(faults, detail="reprefill")
+            return True
+        self.queue.popleft()
+        free_slots.pop(0)
+        req.image = None
+        # fed = the committed tokens the image covers; anything past them
+        # (the handoff's first decode token) goes through the prefill path
+        st = _SlotState(req, blk, prefill_len=len(req.tokens),
+                        fed=blk.n_tokens, admit_seq=self._admit_seq)
+        self._admit_seq += 1
+        self.slots[slot] = st
+        self.stats["image_imports"] += 1
+        self._req_ev("admit", req, slot=slot, bid=blk.bid, resume="image",
+                     restored_tokens=st.fed, budget_pages=budget)
+        return True
+
     def _evict(self, slot: int) -> None:
         st = self.slots.pop(slot)
         self._unpin(st)
+        if self.handoff is not None and self.handoff(st.req, st.block):
+            # custody moved with the export: the request continues on
+            # another engine — not finished here
+            self._req_ev("handoff", st.req, slot=slot,
+                         n_out=len(st.req.out))
+            return
         self.alloc.free(st.block)
         self.finished.append(st.req)
         self._req_ev("finish", st.req, slot=slot, n_out=len(st.req.out),
@@ -478,8 +679,17 @@ class Scheduler:
         # a swap image re-admits without the shared-page discount, so a
         # block admitted mostly through the cache could otherwise wait in
         # the queue forever; the discard path keeps the discount
-        if (self._budget_for(st.req) <= self.engine.n_pages - 1
-                and self.alloc.swap_out(st.block)):
+        fits = self._budget_for(st.req) <= self.engine.n_pages - 1
+        if fits:
+            try:
+                fits = self._call_vbi(lambda: self.alloc.swap_out(st.block))
+            except RetryExhausted as e:
+                # the tier write keeps failing: demote to the discard path
+                # below (re-admission re-prefills, exactly).  swap_out
+                # raised before any change
+                fits = False
+                self._resolve_fallback(e.faults, detail="discard")
+        if fits:
             self._unpin(st)
             st.req.block = st.block
             self.stats["swap_outs"] += 1
@@ -518,7 +728,7 @@ class Scheduler:
                                 - st.block.reserved_pages)
             return need - self.alloc.free_pages
 
-        k = self.decode_horizon
+        k = self.effective_horizon
         # near the tail of generation shrink K along the halving ladder so
         # fully masked steps don't burn model compute
         want_max = max(want(s, k) for s in dec_slots)
@@ -541,8 +751,18 @@ class Scheduler:
         for s in dec_slots:
             if s in self.slots:
                 st = self.slots[s]
-                wants[s] = want(s, k)
-                self.alloc.reserve_span(st.block, st.fed, wants[s])
+                w = want(s, k)
+                try:
+                    self._call_vbi(
+                        lambda b=st.block, f=st.fed, n=w:
+                        self.alloc.reserve_span(b, f, n))
+                except RetryExhausted as e:
+                    # leave this slot out of the horizon for one tick
+                    # (masked in the dispatch): nothing changed, it
+                    # resumes next tick — an exact stall
+                    self._resolve_fallback(e.faults, detail="skip_horizon")
+                    continue
+                wants[s] = w
         return k, wants
 
     # -- one scheduler tick ---------------------------------------------------
@@ -560,7 +780,16 @@ class Scheduler:
             counts = np.zeros((S,), np.int32)
             for s, st in pre.items():
                 n = min(C, st.prefill_len - st.fed)
-                self.alloc.reserve(st.block, st.fed + n)
+                try:
+                    self._call_vbi(
+                        lambda b=st.block, t=st.fed + n:
+                        self.alloc.reserve(b, t))
+                except RetryExhausted as e:
+                    # skip this slot's chunk for one tick (its count stays
+                    # 0: the dispatch writes nothing for the lane) — a
+                    # pure stall, exact by construction
+                    self._resolve_fallback(e.faults, detail="stall_chunk")
+                    continue
                 toks[s, :n] = st.req.tokens[st.fed:st.fed + n]
                 counts[s] = n
             ext["slots"] = len(pre)
@@ -621,6 +850,23 @@ class Scheduler:
                    if not st.prefilling and s not in pre_ids]
         if not dec_ids:
             return
+        if self.faults is not None:
+            # the decode-tick fault class: a poisoned or timed-out horizon
+            # dispatch, fired and resolved here, BEFORE anything is
+            # reserved or dispatched — a dispatch that already ran would
+            # commit its tokens and pages twice.  Each is re-dispatched
+            # within the tick (bounded by the retry budget), so it
+            # resolves retry_ok at once; only latency is lost (accounted)
+            fired = []
+            while (len(fired) < self.retry.max_attempts
+                   and self.faults.fires("decode_tick")):
+                fired.append(self.faults.fire(
+                    "decode_tick", tracer=self.tracer,
+                    tick=self.stats["steps"]))
+            if fired:
+                self.faults.resolve(fired, "retry_ok", tracer=self.tracer,
+                                    attempts=len(fired))
+                self.stats["decode_tick_retries"] += len(fired)
         k, wants = self._plan_horizon(dec_ids)
         dec_ids = [s for s in dec_ids if s in self.slots and s in wants]
         if not dec_ids:

@@ -339,12 +339,12 @@ class TrafficDriver:
     the arrival pump and admission staging for horizon N+1 happen while
     the device is still running horizon N.
 
-    Any object with the scheduler duck type works (the reference's
-    two-engine ``DisaggScheduler`` too; the port's comes with ROADMAP.md
-    § A9).  The driver sleeps only while ``queue`` and ``slots`` are both
-    empty, and the scheduler then holds no horizon in flight (it
-    dispatches one only for occupied slots), so a wall-clock sleep never
-    hides device work."""
+    Any object with the scheduler duck type works, the two-engine
+    :class:`~repro_torch.serve.disagg.DisaggScheduler` too (its ``step``
+    ticks both engines once).  The driver sleeps only while ``queue`` and
+    ``slots`` are both empty, and the scheduler then holds no horizon in
+    flight (it dispatches one only for occupied slots), so a wall-clock
+    sleep never hides device work."""
 
     def __init__(self, sched, trace: Sequence[TimedRequest],
                  clock=None, accountant: Optional[LatencyAccountant] = None,

@@ -1,16 +1,33 @@
 """Shared helpers of the port's parity tests (``tests/test_torch_*.py``):
 the reference's params bridged to the port through numpy, the reference
-model's greedy decode, and a page pool without a model."""
+model's greedy decode, a page pool without a model, and the fixture that
+runs a module's torch ops on one thread."""
 from functools import lru_cache
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from repro.launch.serve import serve_config
 from repro.models import model as jm
 from repro_torch.core.vbi.blocks import PagePool
 from repro_torch.models import model as tm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch ops on one intra-op thread, restoring the
+    count after it.  The suite runs six pytest-xdist workers on the
+    machine's cores, and torch's default of one thread per core in each
+    makes the small ops of these tests contend: a file of disaggregated
+    serves took 462 s that way and well under a minute on one thread.
+    A module imports this fixture by name to turn it on."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @lru_cache(maxsize=None)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import Pool
+from _torch_parity import Pool, one_torch_thread
 from repro.core.vbi.blocks import PagePool, VBIAllocator as JAlloc
 from repro_torch.core.vbi.address_space import VBProps
 from repro_torch.core.vbi.blocks import (DEFAULT_BLOCK_PROPS, HostSwapTier,

@@ -41,6 +41,13 @@ runs on a machine without JAX:
     ``set_sync_debug_mode("error")`` while earlier work is still running
     on the card and never waits for it; the kernel on the restored row and
     ring row is bit-equal to the kernel on the original ones;
+  * the fault plane and disaggregation on the card: the qwen3 smoke
+    serve on two engines with faults at 0.1 gives the unified serve's
+    tokens with no fault left unresolved; the recurrentgemma smoke serve
+    on two engines (ring frames and recurrent rows in each image) gives
+    the unified serve's tokens; ``import_image`` under pending work is
+    sync-free and lands the image bit for bit; a checkpoint of CUDA
+    tensors restores with their dtype and device;
   * the SIMDRAM pack, unpack and μProgram-VM kernels agree bit for bit with
     their plain versions (ragged tails, both styles, every block size, 1,
     2 and 4 words per thread, div at 32 bits in blocks of 1,024); the
@@ -71,6 +78,7 @@ from repro_torch.kernels import bitplane_transpose as tt
 from repro_torch.kernels.bitserial_matmul import ops as bs
 from repro_torch.kernels.bitserial_matmul import ref as bs_ref
 from repro_torch.kernels.paged_attention import ops, paged_attention
+from repro_torch.checkpoint.checkpoint import restore_pytree, save_pytree
 from repro_torch.core.vbi import kvcache as tk
 from repro_torch.core.vbi.blocks import PagePool, VBIAllocator
 from repro_torch.core.vbi.kvcache import make_ring_table
@@ -573,6 +581,67 @@ def test_swap_in_is_sync_free_under_pending_work(dev):
     torch.cuda.synchronize()
     _same_payload(al.snapshot_image(blk), img)
     assert al.free_pages == pool.n_pages - 1 - 6
+
+
+def _serve_tokens(argv):
+    fin, eng, sched = launch_serve.main(argv + ["--device", "cuda"])
+    return {r.rid: r.out for r in fin}, eng, sched
+
+
+def test_disagg_with_faults_on_card_equals_unified(dev):
+    unified, _, _ = _serve_tokens([])
+    out, eng, dsch = _serve_tokens(["--disagg", "--faults", "--fault-rate",
+                                    "0.1"])
+    assert out == unified and dsch.stats["handoffs"] == 6
+    assert sum(dsch.faults.fired.values()) > 0
+    assert dsch.faults.stats["unresolved"] == 0
+    assert eng.pages_in_use == 0 and dsch.prefill.engine.pages_in_use == 0
+
+
+def test_disagg_recurrentgemma_on_card_equals_unified(dev):
+    arch = ["--arch", "recurrentgemma-9b"]
+    unified, _, _ = _serve_tokens(arch)
+    out, eng, dsch = _serve_tokens(arch + ["--disagg"])
+    assert out == unified and dsch.stats["handoffs"] == 6
+    assert eng.geom.n_ring and eng.geom.n_rg
+    assert eng.alloc.stats["image_imports"] == 6
+
+
+def test_import_image_is_sync_free_under_pending_work(dev):
+    """``import_image`` verifies the sealed image on the host, stages it
+    through fresh pinned buffers and enqueues the scatter: no host sync,
+    and the event behind a 0.2 s spin is still pending when it
+    returns."""
+    pool, al, blk = _swap_pool(dev)
+    img = al.export_image(blk, tokens=list(range(13)))
+    assert img.verify() and al.pages_in_use == 0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(400e6))
+    ev = torch.cuda.Event()
+    ev.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        blk2 = al.import_image(img, 3, reserve_pages=6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not ev.query()
+    torch.cuda.synchronize()
+    _same_payload(al.snapshot_image(blk2), img)
+    assert al.free_pages == pool.n_pages - 1 - 6
+
+
+def test_checkpoint_of_cuda_tensors_keeps_dtype_and_device(dev, tmp_path):
+    tree = {"w": torch.randn(3, 4, device=dev).to(torch.bfloat16),
+            "ids": [torch.arange(5, device=dev, dtype=torch.int32)]}
+    save_pytree(tree, tmp_path, step=1)
+    back = restore_pytree({"w": torch.zeros(3, 4, dtype=torch.bfloat16,
+                                            device=dev),
+                           "ids": [torch.zeros(5, dtype=torch.int32,
+                                               device=dev)]}, tmp_path, 1)
+    assert back["w"].device == dev and back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"], tree["w"])
+    assert back["ids"][0].device == dev and torch.equal(back["ids"][0],
+                                                        tree["ids"][0])
 
 
 def test_kernel_on_restored_rows_equals_original(dev):

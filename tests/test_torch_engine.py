@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged, jax_decode_step
+from _torch_parity import bridged, jax_decode_step, one_torch_thread
 from repro.models import model as jm
 from repro.serve.engine import PagedEngine as JEngine
 from repro_torch.kernels.paged_attention import paged_attention

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged, jax_greedy
+from _torch_parity import bridged, jax_greedy, one_torch_thread
 from repro.serve.engine import PagedEngine as JEngine
 from repro.serve.engine import build_stack_geom as j_build_stack_geom
 from repro_torch.models.config import LayerSpec, ModelConfig, Stage

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged, jax_decode_step
+from _torch_parity import bridged, jax_decode_step, one_torch_thread
 from repro.models import model as jm
 from repro_torch.models import model as tm
 

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged
+from _torch_parity import bridged, one_torch_thread
 from repro.models import layers as jl
 from repro_torch.models import layers as tl
 

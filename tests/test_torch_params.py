@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged
+from _torch_parity import bridged, one_torch_thread
 from repro import configs as jcfg
 from repro.launch.serve import serve_config as j_serve_config
 from repro.models import model as jm

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import Pool, bridged, jax_greedy
+from _torch_parity import Pool, bridged, jax_greedy, one_torch_thread
 from repro.core.vbi import kvcache as jk
 from repro.core.vbi.blocks import PagePool, VBIAllocator as JAlloc
 from repro.serve.engine import PagedEngine as JEngine

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged
+from _torch_parity import bridged, one_torch_thread
 from repro.configs import smoke_config as j_smoke_config
 from repro.data.pipeline import SyntheticLMData as JSyntheticLMData
 from repro.kernels.bitserial_matmul import QuantizedLinear as JQuantizedLinear

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged
+from _torch_parity import bridged, one_torch_thread
 from repro.models import rglru as jr
 from repro_torch.models import rglru as tr
 

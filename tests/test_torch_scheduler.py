@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged, jax_greedy
+from _torch_parity import bridged, jax_greedy, one_torch_thread
 from repro_torch.launch import serve
 from repro_torch.models import model as tm
 from repro_torch.serve.engine import PagedEngine
@@ -66,15 +66,6 @@ def test_scheduler_rejects_oversized_requests():
         sched.add_request(list(range(12)), max_new=2)
     with pytest.raises(ValueError, match="pool capacity"):
         sched.add_request(list(range(6)), max_new=2)
-
-
-@pytest.mark.parametrize("kw", [dict(faults=object())])
-def test_unported_scheduler_options_raise(kw):
-    cfg, _, tp = bridged("qwen3-0.6b")
-    eng = PagedEngine(cfg, tp, n_pages=9, page_size=4, max_seqs=2,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md § A9"):
-        Scheduler(eng, **kw)
 
 
 def test_launcher_serves_smoke_config_on_cpu(capsys):

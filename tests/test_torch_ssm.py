@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged
+from _torch_parity import bridged, one_torch_thread
 from repro.models import ssm as js
 from repro_torch.models import ssm as ts
 

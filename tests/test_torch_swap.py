@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged, jax_greedy
+from _torch_parity import bridged, jax_greedy, one_torch_thread
 from repro.core.vbi import kvcache as jk
 from repro.serve.faults import FaultPlan, install_faults
 from repro.serve.recovery import retry_call

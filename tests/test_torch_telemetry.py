@@ -26,7 +26,7 @@ import math
 import numpy as np
 import pytest
 
-from _torch_parity import bridged
+from _torch_parity import bridged, one_torch_thread
 from repro.core.vbi.address_space import VBProps as JProps
 from repro.serve import telemetry as jt
 from repro.serve.engine import PagedEngine as JEngine

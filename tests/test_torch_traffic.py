@@ -24,7 +24,7 @@ import re
 import numpy as np
 import pytest
 
-from _torch_parity import bridged, jax_greedy
+from _torch_parity import bridged, jax_greedy, one_torch_thread
 from repro.serve import telemetry as jt
 from repro.serve import traffic as jtr
 from repro_torch.launch import serve as launch_serve
