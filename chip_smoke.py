@@ -103,6 +103,31 @@ Phases (any failure exits non-zero and prints no result line):
               ``_call_vbi`` reserve under ``set_sync_debug_mode("error")``
               with a horizon's event pending.  Launches 28 x token steps
               in every run (both engines' under ``--disagg``);
+ 4g. train  — training, the encoder-decoder and vision inputs (no
+              paged-attention launch: training attends through the plain
+              ``layers.attention``, as the reference).  qwen3-0.6b at its
+              published config through ``repro_torch.launch.train.main``
+              (``--no-smoke --steps 20 --batch 8 --seq 128 --ckpt-every
+              10``; float32 params, bfloat16 compute, remat): every loss
+              finite and the last below the first; a second run resumed
+              by the launcher from the step-10 checkpoint alone gives the
+              same losses and params within the stated tolerance (and
+              says whether bit-equal); one more launcher step under
+              ``set_sync_debug_mode("error")``; host ms per step, tokens
+              per second, one profiled step's device-busy ms, idle share
+              and top kernels, peak memory, checkpoint bytes.  Three
+              train steps of the qwen3 smoke config at float32 on the card
+              and on the CPU from the same params and batches agree.
+              whisper-small at its published config (12 + 12 layers,
+              1,500 audio frames) and internvl2-26b at full width cut to 2
+              of 48 layers (256 vision tokens): prefill of 13 tokens and
+              one decode step equal ``forward_train`` at the same
+              positions in float32; then train steps at their bfloat16
+              compute (whisper 3 on one batch, the loss falling;
+              internvl2 one of 4 microbatches, its loss the mean of
+              ``lm_loss`` over them, through the vision slice), the
+              params moving.  Each model is freed before the next; the
+              checkpoints live under ``build/train`` and are removed;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -1941,6 +1966,369 @@ HETERO_ARGV = ["--no-smoke", "--attn-impl", "kernel", "--requests", "6",
 WRAP_PROMPT, WRAP_NEW = 1016, 16
 
 
+# -- phase 4g: training, the encoder-decoder and vision inputs ---------------
+#: the launcher's run: qwen3-0.6b at its published config, bfloat16
+#: compute; its checkpoints go to the checkout's ignored build directory
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_B, TRAIN_S = 20, 10, 8, 128
+TRAIN_ARGV = ["--arch", "qwen3-0.6b", "--no-smoke",
+              "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+              "--seq", str(TRAIN_S), "--ckpt-every", str(TRAIN_EVERY),
+              "--device", "cuda"]
+#: resume from step 10 against the uninterrupted run, deterministic
+#: algorithms off: losses within 1e-5 (of a loss near 12), params within
+#: 1e-6, each moment leaf (m, v) within 1e-5 of its norm, the step count
+#: equal.  The runs have come out bit-equal on the card so far; a resume
+#: that lost m, v or the step would send every element another way (m
+#: and v off by their own size, the params by more than 1e-6 in 10 steps)
+RESUME_LOSS_TOL, RESUME_PARAM_TOL, RESUME_MOMENT_TOL = 1e-5, 1e-6, 1e-5
+#: the smoke step on the card against the CPU, float32: loss and grad norm
+#: 1e-5 relative; params 1e-6 absolute (read 1.5e-8); each moment leaf
+#: within 1e-5 of its norm.  Adam moves an element by about its learning
+#: rate whatever its gradient, so the params alone would miss wrong
+#: gradients: the grad norm and the moments (m = 0.1 x clipped g after
+#: the first step) do not
+CPU_LOSS_RTOL, CPU_PARAM_ATOL, CPU_MOMENT_RTOL = 1e-5, 1e-6, 1e-5
+#: prefill + decode against teacher forcing in float32: the reference's
+#: tolerance (tests/test_models.py::test_decode_matches_teacher_forcing)
+TF_ATOL, TF_RTOL = 2e-3, 1e-3
+
+
+def _tree_diff(a, b):
+    """Max abs difference of two trees' leaves, on ``a``'s device."""
+    from repro_torch.tree import leaves
+    return max(float((x.float() - y.to(x.device).float()).abs().max())
+               for x, y in zip(leaves(a), leaves(b), strict=True))
+
+
+def _moment_err(a, b):
+    """Max over the m and v leaves of two optimizer states of
+    ||a - b|| / ||b||, on ``a``'s device."""
+    from repro_torch.tree import leaves
+    return max(float((x.float() - y.to(x.device).float()).norm()
+                     / y.float().norm())
+               for k in ("m", "v")
+               for x, y in zip(leaves(a[k]), leaves(b[k]), strict=True))
+
+
+def _train_run(torch, launch_train, ckpt_dir, log, n_steps):
+    """The launcher as a user runs it; returns (state, losses, loop, wall
+    s, the loop's dt per step)."""
+    t0 = time.perf_counter()
+    state, end, losses, loop = launch_train.main(
+        TRAIN_ARGV + ["--ckpt-dir", str(ckpt_dir), "--log", str(log)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if (end != TRAIN_STEPS or len(losses) != n_steps
+            or not all(math.isfinite(x) for x in losses)):
+        _fail(f"[train] run ended at step {end} with losses {losses}")
+    dts = [json.loads(line)["dt_s"] for line in log.read_text().splitlines()]
+    return state, losses, loop, wall, dts
+
+
+def phase_train_launcher(torch, pa, card):
+    """Phase 4g (1): ``repro_torch.launch.train.main`` on the published
+    qwen3-0.6b for 20 steps, the loss falling; a second run resumed from
+    the step-10 checkpoint against it; one more step under
+    ``set_sync_debug_mode("error")``; one step profiled.  Returns the
+    numbers of the ``[train]`` line."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.tree import leaves
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, loop, wall, dts = _train_run(
+        torch, launch_train, TRAIN_DIR / "run", TRAIN_DIR / "run.jsonl",
+        TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        _fail(f"[train] loss did not fall: {losses[0]} -> {losses[-1]}")
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    ckpt = TRAIN_DIR / "run" / f"step_{TRAIN_EVERY}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    steady = sorted(dts[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    tok_s = TRAIN_B * TRAIN_S / step_ms * 1e3
+    print(f"[train] {card}: qwen3-0.6b ({n_params} params; float32 params,"
+          f" bfloat16 compute, remat) through repro_torch.launch.train: "
+          f"{TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens in "
+          f"{wall:.1f} s wall (init and checkpoints included); losses "
+          f"{[round(float(x), 4) for x in losses]}; host ms per step (the "
+          f"loop's dt, loss read included; median of steps 2-{TRAIN_STEPS}) "
+          f"{step_ms:.3f}, min {steady[0] * 1e3:.3f}, max "
+          f"{steady[-1] * 1e3:.3f}, step 1 {dts[0] * 1e3:.1f}; "
+          f"{tok_s:.1f} tokens/s; max_memory_allocated {peak} B; a "
+          f"checkpoint {ckpt_bytes} B on disk")
+
+    # the step-10 checkpoint alone in a fresh directory: the launcher
+    # resumes from it by itself
+    resume_dir = TRAIN_DIR / "resume"
+    resume_dir.mkdir()
+    shutil.move(str(ckpt), str(resume_dir / ckpt.name))
+    shutil.rmtree(TRAIN_DIR / "run")
+    state2, losses2, loop2, wall2, _ = _train_run(
+        torch, launch_train, resume_dir, TRAIN_DIR / "resume.jsonl",
+        TRAIN_STEPS - TRAIN_EVERY)
+    loss_err = max(abs(a - b) for a, b in zip(losses2, losses[TRAIN_EVERY:]))
+    param_err = _tree_diff(state2["params"], state["params"])
+    moment_err = _moment_err(state2["opt"], state["opt"])
+    steps = (int(state2["opt"]["step"]), int(state["opt"]["step"]))
+    bit_equal = (loss_err == param_err == 0 and steps[0] == steps[1]
+                 and _tree_diff(state2["opt"], state["opt"]) == 0)
+    if (loss_err > RESUME_LOSS_TOL or param_err > RESUME_PARAM_TOL
+            or moment_err > RESUME_MOMENT_TOL or steps[0] != steps[1]):
+        _fail(f"[train] the resumed run is off by {loss_err:.3e} in loss, "
+              f"{param_err:.3e} in params, {moment_err:.3e} in m and v; "
+              f"steps {steps}")
+    print(f"[train] resumed from step {TRAIN_EVERY} ({wall2:.1f} s wall, "
+          f"restore included): losses of steps {TRAIN_EVERY + 1}-"
+          f"{TRAIN_STEPS} within {loss_err:.3e} of the uninterrupted run's "
+          f"(tol {RESUME_LOSS_TOL}), params within {param_err:.3e} (tol "
+          f"{RESUME_PARAM_TOL}), m and v within {moment_err:.3e} of their "
+          f"norms (tol {RESUME_MOMENT_TOL}), step {steps[0]} in both; "
+          f"bit-equal: {bit_equal} "
+          f"(torch.use_deterministic_algorithms off)")
+    del state
+    _free(torch)
+
+    # one more step of the launcher's (its batch staged through pinned
+    # memory) under the sync check, then one profiled
+    cfg = get_config("qwen3-0.6b")
+    batch = SyntheticLMData(cfg, TRAIN_B, TRAIN_S, seed=0).batch_at(
+        TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, m = loop2.train_step(state2, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not math.isfinite(float(m["loss"])):
+        _fail("[train] the sync-checked step's loss is not finite")
+    print("[sync] train: one launcher train step of qwen3-0.6b (batch "
+          "staging, forward, backward with remat, AdamW in place) under "
+          "set_sync_debug_mode('error'): no host sync")
+    walls = []
+
+    def timed_step():
+        t0 = time.perf_counter()
+        loop2.train_step(state2, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    # the second call is the profiled one; idle is read from its own host
+    # time (the profiler's cost included), not from another run's
+    busy_ms, kernels = _kernel_busy(torch, timed_step)
+    prof_ms = walls[-1] * 1e3
+    idle = None
+    if busy_ms is None:
+        print("[train] profiled step: device-busy time not measured (no "
+              "CUDA kernel events)")
+    else:
+        idle = 1 - busy_ms / prof_ms
+        top = "; ".join(f"{k[:70]} x{n} {ms:.3f} ms"
+                        for k, n, ms in kernels[:6])
+        print(f"[train] {card}: one profiled step: "
+              f"{sum(n for _, n, _ in kernels)} kernels, device-busy "
+              f"{busy_ms:.3f} ms in {prof_ms:.3f} host ms of that step "
+              f"(profiler on; the loop's median {step_ms:.3f}): idle "
+              f"{idle * 100:.1f}%; top: {top}")
+    del state2, loop2
+    _free(torch)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"step_ms": step_ms, "tokens_per_s": tok_s, "busy_ms": busy_ms,
+            "profiled_step_ms": prof_ms, "idle": idle, "peak_bytes": peak,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "resume_loss_err": loss_err, "resume_param_err": param_err,
+            "resume_moment_err": moment_err, "resume_bit_equal": bit_equal,
+            "ckpt_bytes": ckpt_bytes, "wall_s": wall}
+
+
+def phase_train_cpu_check(torch, dev):
+    """Phase 4g (2): three train steps of the qwen3 smoke config at float32
+    compute on the card and on the CPU, from the same params and
+    batches."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.device import stage
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(smoke_config("qwen3-0.6b"),
+                              compute_dtype="float32")
+    cpu = torch.device("cpu")
+    step = make_train_step(cfg, AdamWConfig())
+    base = init_train_state(cfg, AdamWConfig(), seed=0, device=cpu)
+    states = {cpu: base, dev: tree_map(lambda t: t.to(dev), base)}
+    data = SyntheticLMData(cfg, 8, 64, seed=0)
+    errs = {"loss": 0.0, "grad_norm": 0.0}
+    for i in range(3):
+        out = {d: step(states[d], {k: stage(v, d) for k, v in
+                                   data.batch_at(i).items()})
+               for d in (cpu, dev)}
+        states = {d: out[d][0] for d in out}
+        for k in errs:
+            want = float(out[cpu][1][k])
+            errs[k] = max(errs[k], abs(float(out[dev][1][k]) - want)
+                          / abs(want))
+    param_err = _tree_diff(states[dev]["params"], states[cpu]["params"])
+    moment_err = _moment_err(states[dev]["opt"], states[cpu]["opt"])
+    if (max(errs.values()) > CPU_LOSS_RTOL or param_err > CPU_PARAM_ATOL
+            or moment_err > CPU_MOMENT_RTOL):
+        _fail(f"[train] smoke steps on the card vs the CPU: relative "
+              f"{errs}, params {param_err:.3e}, m and v {moment_err:.3e}")
+    n = sum(t.numel() for t in leaves(base["params"]))
+    print(f"[train] qwen3-0.6b smoke ({n} params, float32) 3 train steps "
+          f"on the card and on the CPU from the same params and batches: "
+          f"loss and grad norm within {max(errs.values()):.3e} relative "
+          f"(tol {CPU_LOSS_RTOL}), params within {param_err:.3e} (tol "
+          f"{CPU_PARAM_ATOL}), m and v within {moment_err:.3e} of their "
+          f"norms (tol {CPU_MOMENT_RTOL})")
+    return {"params": param_err, "moments": moment_err,
+            "loss_grad_norm_rel": max(errs.values())}
+
+
+def _teacher_forcing(torch, cfg, params, dev, S, tag):
+    """prefill of S tokens and one decode step against forward_train at
+    the same positions (float32), on the card; returns the max abs
+    error."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import model as tm
+
+    data = SyntheticLMData(cfg, 2, cfg.n_vis_tokens + S + 1, 0).batch_at(0)
+    full = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    pre = {k: (v[:, :S] if k in ("tokens", "labels") else v)
+           for k, v in full.items()}
+    off = cfg.n_vis_tokens
+    with torch.no_grad():
+        logits = tm.forward_train(cfg, params, full)
+        lg_pre, caches = tm.prefill(cfg, params, pre, max_len=off + S + 4)
+        lg_dec, _ = tm.decode_step(cfg, params, caches,
+                                   full["tokens"][:, S:S + 1], off + S)
+    err = 0.0
+    for got, want in ((lg_pre[:, 0], logits[:, off + S - 1]),
+                      (lg_dec[:, 0], logits[:, off + S])):
+        if not torch.allclose(got, want, atol=TF_ATOL, rtol=TF_RTOL):
+            _fail(f"[train] {tag}: prefill/decode logits differ from "
+                  f"teacher forcing by {(got - want).abs().max():.3e}")
+        err = max(err, float((got - want).abs().max()))
+    print(f"[train] {tag}: prefill of {S} tokens"
+          f"{f' after {off} vision tokens' if off else ''} and one decode "
+          f"step equal forward_train at the same positions (float32): max "
+          f"abs err {err:.3e} (tol {TF_ATOL} + {TF_RTOL} relative)")
+    return err
+
+
+def _train_steps(torch, cfg, params, dev, B, S_text, n, tag, opt):
+    """``n`` train steps at ``cfg``'s own dtypes on one batch; returns the
+    losses.  Fails unless they are finite and falling and the params
+    moved."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.device import stage
+    from repro_torch.models.model import lm_loss
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    batch = {k: stage(v, dev) for k, v in SyntheticLMData(
+        cfg, B, cfg.n_vis_tokens + S_text, 0).batch_at(0).items()}
+    # the step's loss is the mean of lm_loss over its microbatches
+    mb = B // cfg.grad_accum
+    with torch.no_grad():
+        want = sum(float(lm_loss(cfg, params, {k: v[i * mb:(i + 1) * mb]
+                                               for k, v in batch.items()}))
+                   for i in range(cfg.grad_accum)) / cfg.grad_accum
+    # the params that must move: the leaves under 16 M elements (copies of
+    # the embedding and head would take 4.6 GB at internvl2's width)
+    small = [t for t in leaves(params) if t.numel() < 1 << 24]
+    before = [t.clone() for t in small]
+    state = {"params": params, "opt": init_opt_state(params, opt)}
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(n)]
+    wall = time.perf_counter() - t0
+    moved = min(float((a - b).abs().max()) for a, b in zip(small, before))
+    if (not all(math.isfinite(x) for x in losses) or moved == 0
+            or (n > 1 and not losses[-1] < losses[0])
+            or abs(losses[0] - want) > 1e-5 * abs(want)):
+        _fail(f"[train] {tag}: losses {losses} (lm_loss over the "
+              f"microbatches {want}), params moved {moved}")
+    print(f"[train] {tag}: {n} train step(s) of {B} x "
+          f"{cfg.n_vis_tokens + S_text} positions ({cfg.compute_dtype} "
+          f"compute, grad_accum {cfg.grad_accum}) on one batch: losses "
+          f"{[round(x, 4) for x in losses]} (the first = lm_loss averaged "
+          f"over the microbatches, {want:.4f}), every params leaf under "
+          f"16 M elements moved (the least by {moved:.3e}); "
+          f"{wall * 1e3 / n:.1f} host ms per step; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    del state
+    return losses
+
+
+def phase_train_encdec_vision(torch, dev, card):
+    """Phase 4g (3, 4): whisper-small at its published config and
+    internvl2-26b at full width cut to 2 of 48 layers: teacher forcing on
+    the card in float32, then train steps at their own compute dtype."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+
+    errs = {}
+    for arch, depth in (("whisper-small", None), ("internvl2-26b", 2)):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if depth:
+            # full width; 2 of 48 layers: 1.92 G params, 31 GB with
+            # gradients and Adam state (all 48 would take 409 GB)
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        params = tm.init_params(cfg, seed=0, device=dev)
+        n = sum(t.numel() for t in leaves(params))
+        extra = (f"{cfg.n_enc_layers} encoder layers over "
+                 f"{cfg.n_audio_frames} audio frames" if cfg.is_encdec
+                 else f"{cfg.n_vis_tokens} vision tokens")
+        tag = (f"{cfg.name} ({cfg.n_layers} decoder layers, {extra}, "
+               f"d_model {cfg.d_model}, {n} params)")
+        errs[arch] = _teacher_forcing(
+            torch, dataclasses.replace(cfg, compute_dtype="float32"), params,
+            dev, 13, tag)
+        if cfg.is_encdec:
+            _train_steps(torch, cfg, params, dev, 4, 64, 3, tag,
+                         AdamWConfig(lr=1e-3, warmup_steps=1))
+        else:
+            _train_steps(torch, cfg, params, dev, 4, 32, 1, tag,
+                         AdamWConfig())
+        del params
+        _free(torch)
+        print(f"[train] {cfg.name}: {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def phase_train(torch, pa, card, dev):
+    """Phase 4g: training, the encoder-decoder and the vision inputs on
+    the card.  The paged-attention kernel is not on this path (training
+    attends through the plain ``layers.attention``, as the reference
+    does): its count, set to 0 here, must still be 0 at the end."""
+    pa.launches = 0
+    res = phase_train_launcher(torch, pa, card)
+    res["cpu_err"] = phase_train_cpu_check(torch, dev)
+    res["teacher_forcing_err"] = phase_train_encdec_vision(torch, dev, card)
+    if pa.launches != 0:
+        _fail(f"[train] the paged-attention kernel ran {pa.launches} times "
+              f"in training")
+    res["paged_attention_launches"] = pa.launches
+    print(f"[train] {json.dumps({'train': res})}")
+    return res
+
+
 def phase_ring_kernel(torch, F, pa, ops, batched, dev):
     """The kernel on ring-table rows (static, contiguous: slot s reads
     pages 1 + s * ring_pages ..) at the ring pool's three shapes, lengths
@@ -2978,6 +3366,11 @@ def main() -> int:
     t0 = time.perf_counter()
     chaos_launches = phase_chaos(torch, pa, card, dev, serve_outs, swap_outs)
     print(f"[chaos] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
+    phase_train(torch, pa, card, dev)
+    print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
 
     _free(torch)
     t0 = time.perf_counter()

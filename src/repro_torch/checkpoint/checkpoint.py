@@ -4,9 +4,8 @@ side reads the other's directories).
 
 A tree is nested ``dict`` / ``list`` / ``tuple`` whose leaves are
 ``torch.Tensor``, ``np.ndarray`` or Python numbers (``None`` holds no
-leaf).  Leaves are visited in the reference's order — dict keys sorted,
-sequences in order — and keyed as the reference renders a leaf path
-(``['name']``, ``[0]``, ``['a'][1]``).
+leaf).  Leaves are visited in the reference's order and keyed as the
+reference renders a leaf path (``repro_torch/tree.py``).
 
 * **Atomic**: every file is written to a ``.tmp`` name and renamed, the
   manifest is written last, and the whole step directory lands via one
@@ -38,10 +37,12 @@ import shutil
 import sys
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..tree import leaves_with_path, map_with_path
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -50,39 +51,6 @@ class CheckpointCorruptError(RuntimeError):
     that step was *explicitly* requested; the discovery path
     (:func:`latest_step`) skips damaged steps instead, so restores fall
     back to the previous intact one."""
-
-
-def _children(node) -> Optional[List[Tuple[str, Any]]]:
-    """``(key text, child)`` of an inner node in the reference's order, or
-    None for a leaf."""
-    if isinstance(node, dict):
-        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
-    if isinstance(node, (list, tuple)):
-        return [(f"[{i}]", c) for i, c in enumerate(node)]
-    return None
-
-
-def _map_tree(fn: Callable[[str, Any], Any], node, path: str = ""):
-    """The tree with each leaf replaced by ``fn(key, leaf)``."""
-    if node is None:
-        return None
-    kids = _children(node)
-    if kids is None:
-        return fn(path, node)
-    if isinstance(node, dict):
-        return {k: _map_tree(fn, node[k], f"{path}[{k!r}]") for k in node}
-    out = [_map_tree(fn, c, f"{path}[{i}]") for i, c in enumerate(node)]
-    return type(node)(out) if isinstance(node, tuple) else out
-
-
-def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
-    """``[(key, leaf)]`` in the reference's leaf order."""
-    if tree is None:
-        return []
-    kids = _children(tree)
-    if kids is None:
-        return [(path, tree)]
-    return [kl for k, c in kids for kl in _flatten(c, path + k)]
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -105,7 +73,7 @@ def save_pytree(tree, directory: str | Path, step: int,
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    host_leaves = [(k, _to_host(v)) for k, v in _flatten(tree)]
+    host_leaves = [(k, _to_host(v)) for k, v in leaves_with_path(tree)]
 
     def _write():
         manifest = {"step": step, "leaves": []}
@@ -224,7 +192,7 @@ def restore_pytree(template, directory: str | Path, step: int,
                                             dtype=leaf.dtype)
         return arr.astype(np.asarray(leaf).dtype)
 
-    return _map_tree(load, template)
+    return map_with_path(load, template)
 
 
 class CheckpointManager:

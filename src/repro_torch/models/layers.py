@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .quantized import qmm
+from .quantized import promoted, qmm
 
 #: additive mask constant of the dense attention paths; the paged paths
 #: (serve/engine.py, kernels/paged_attention) use -1e30 instead
@@ -202,7 +202,8 @@ def _moe_local(params, x: torch.Tensor, cfg) -> torch.Tensor:
     the (token, choice) pairs are sorted by expert (stably, so the pairs
     past an expert's capacity ``cap`` are the same ones the reference
     drops) and dispatched into a [G, E, cap, d] buffer; the expert FFNs
-    are batched einsums.  Capacity and groups are host ints from shapes.
+    are batched einsums in the promoted dtype of activations and weights.
+    Capacity and groups are host ints from shapes.
     Each token's K expert outputs are summed in a fixed order (choice 0
     first), so two runs give the same bits on any device."""
     T, d = x.shape
@@ -237,15 +238,18 @@ def _moe_local(params, x: torch.Tensor, cfg) -> torch.Tensor:
     buf = torch.zeros((G * E * cap, d), dtype=x.dtype, device=dev)
     buf.index_add_(0, flat, vals.reshape(-1, d))
     buf = buf.reshape(G, E, cap, d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, params["w1"])) \
-        * torch.einsum("gecd,edf->gecf", buf, params["w3"])
-    out_e = torch.einsum("gecf,efd->gecd", h, params["w2"])
+    h = F.silu(torch.einsum("gecd,edf->gecf", *promoted(buf, params["w1"]))) \
+        * torch.einsum("gecd,edf->gecf", *promoted(buf, params["w3"]))
+    out_e = torch.einsum("gecf,efd->gecd", *promoted(h, params["w2"]))
     gathered = out_e[gidx, e_sorted, slot]                    # [G, Tg*K, d]
     w = (torch.gather(topw.reshape(G, Tg * K), 1, order)
          * keep).to(x.dtype)
     # back to (token, choice) order, then a fixed-order sum over choices
-    contrib = torch.empty_like(gathered).scatter_(
-        1, order[..., None].expand(-1, -1, d), gathered * w[..., None])
+    # in x.dtype: the reference scatter-adds into zeros of x.dtype, which
+    # casts its updates to it
+    weighted = (gathered * w[..., None]).to(x.dtype)
+    contrib = torch.empty_like(weighted).scatter_(
+        1, order[..., None].expand(-1, -1, d), weighted)
     contrib = contrib.reshape(G, Tg, K, d)
     yg = contrib[:, :, 0]
     for k in range(1, K):

@@ -1,35 +1,52 @@
-"""Stage-structured decoder for the decoder-only stacks.
+"""Stage-structured decoder (+ optional encoder) for every architecture.
 
 Counterpart of ``repro/models/model.py``.  Params are a plain nested dict
 with the reference's tree layout: ``embed``, ``final_norm``, optional
-``lm_head``, and ``stages[i][j]`` — one dict per period entry of stage i,
-every leaf stacked along a leading ``[count]`` axis.  Caches mirror the
-same structure.
+``lm_head``, ``stages[i][j]`` — one dict per period entry of stage i,
+every leaf stacked along a leading ``[count]`` axis — and, for
+encoder-decoder stacks, ``encoder`` (``{"stages": [[attn layer]],
+"final_norm"}``).  Caches mirror the decoder's structure.
 
 Entry points (plain functions of ``(cfg, params, ...)``):
 
   * ``forward_train`` — the causal LM forward over a batch → logits;
-  * ``prefill``       — forward over a prompt + emit the KV caches;
+  * ``lm_loss``       — mean next-token cross entropy of those logits;
+  * ``prefill``       — forward over a prompt + emit the caches;
   * ``decode_step``   — one token with caches.
 
+A batch holds ``tokens`` (and ``labels`` for the loss), plus
+``audio_frames`` [B, n_audio_frames, d] for encoder-decoder stacks
+(whisper: a bidirectional encoder over stub frame embeddings, whose
+output every decoder layer cross-attends between its mixer and channel
+mixer; prefill keeps the cross K/V in the cache as ``xk``/``xv``, decode
+reads them there) and ``vision_embeds`` [B, n_vis_tokens, d] for vision
+stacks (internvl2: prepended to the token embeddings).
+
 Every attention and MLP projection goes through ``quantized.qmm``, so the
-three also run a ``quantize_serving_params`` tree.  Every layer kind is
-ported: attention (``attn``, and windowed ``local``/SWA ones), RG-LRU
-(``rglru.py``) and Mamba-2 (``ssm.py``) mixers, dense and top-k MoE
-channel mixers.  Vision and encoder-decoder inputs, ``lm_loss`` and
-gradients are queued in ROADMAP.md.
+entry points also run a ``quantize_serving_params`` tree.  Every layer
+kind is ported: attention (``attn``, and windowed ``local``/SWA ones),
+RG-LRU (``rglru.py``) and Mamba-2 (``ssm.py``) mixers, dense and top-k
+MoE channel mixers.  A product of a bfloat16 activation and a float32
+weight computes in float32, as in the reference (``quantized.promoted``).
+Gradients are autograd's over these ops; with ``cfg.remat`` a train
+forward that records them runs each decoder layer under
+``torch.utils.checkpoint`` (``remat_policy="dots"`` keeps the outputs of
+the 2-D matmuls), which changes memory only.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from ..device import resolve_device
+from ..tree import leaves
 from .config import LayerSpec, ModelConfig
 from .layers import attention, mlp, moe, rms_norm, rope
-from .quantized import qmm
+from .quantized import matmul, qmm
 from .rglru import init_rglru_params, rglru_decode_step, rglru_forward
 from .ssm import init_mamba_params, mamba_decode_step, mamba_forward, ssm_dims
 
@@ -47,13 +64,6 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 def _cdt(cfg: ModelConfig) -> torch.dtype:
     return _dtype(cfg.compute_dtype)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder stacks are not ported yet "
-            f"(ROADMAP.md § A5b)")
 
 
 # --------------------------------------------------------------------------
@@ -78,7 +88,10 @@ class _Init:
         return torch.full(shape, value, dtype=dtype, device=self.device)
 
 
-def _init_attn(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
+def _init_attn(cfg: ModelConfig, ini: _Init, n: int, dtype,
+               cross: bool = False) -> Dict:
+    """Attention leaves; a cross-attention block has no bias and no
+    qk-norm."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
     s = d ** -0.5
     p = {
@@ -87,11 +100,11 @@ def _init_attn(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
         "wv": ini.normal((n, d, KV * hd), s, dtype),
         "wo": ini.normal((n, H * hd, d), (H * hd) ** -0.5, dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = ini.zeros((n, H * hd), dtype)
         p["bk"] = ini.zeros((n, KV * hd), dtype)
         p["bv"] = ini.zeros((n, KV * hd), dtype)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ini.zeros((n, hd), torch.float32)
         p["k_norm"] = ini.zeros((n, hd), torch.float32)
     return p
@@ -117,10 +130,11 @@ def _init_moe(cfg: ModelConfig, ini: _Init, n: int, dtype) -> Dict:
 
 
 def _init_layer(spec: LayerSpec, cfg: ModelConfig, ini: _Init, n: int,
-                dtype) -> Dict:
+                dtype, with_cross: bool = False) -> Dict:
     """One period entry's leaves, stacked over its ``n`` layers: the
     reference's tree (mamba layers have no ``ln2`` and no channel mixer;
-    MoE layers carry ``moe`` in place of ``mlp``)."""
+    MoE layers carry ``moe`` in place of ``mlp``; an encoder-decoder's
+    decoder layers add ``ln_x`` and the cross-attention ``xattn``)."""
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": ini.zeros((n, d), torch.float32)}
     if spec.kind in ("attn", "local"):
@@ -129,6 +143,9 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, ini: _Init, n: int,
         p["mamba"] = init_mamba_params(cfg, ini, n, dtype)
     else:                                           # rglru
         p["rglru"] = init_rglru_params(cfg, ini, n, dtype)
+    if with_cross:
+        p["ln_x"] = ini.zeros((n, d), torch.float32)
+        p["xattn"] = _init_attn(cfg, ini, n, dtype, cross=True)
     if spec.kind != "mamba":
         p["ln2"] = ini.zeros((n, d), torch.float32)
         if spec.moe:
@@ -145,7 +162,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     The values differ from the reference's ``jax.random`` draws; tests
     that compare the two packages bridge the reference's params with
     :func:`params_from_numpy` instead."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -158,10 +174,18 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "stages": [],
     }
     for st in cfg.stages():
-        params["stages"].append([_init_layer(spec, cfg, ini, st.count, dtype)
-                                 for spec in st.period])
+        params["stages"].append([
+            _init_layer(spec, cfg, ini, st.count, dtype,
+                        with_cross=cfg.is_encdec)
+            for spec in st.period])
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.normal((d, cfg.vocab), d ** -0.5, dtype)
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "stages": [[_init_layer(LayerSpec("attn"), cfg, ini,
+                                    cfg.n_enc_layers, dtype)]],
+            "final_norm": ini.zeros((d,), torch.float32),
+        }
     return params
 
 
@@ -193,19 +217,25 @@ def _layer_cache_shapes(spec: LayerSpec, cfg: ModelConfig, batch: int,
                         max_len: int, dtype) -> Dict:
     """name → (shape, dtype) of one layer's cache, per kind: ``{"k", "v"}``
     for attention, ``{"state", "conv"}`` for mamba, ``{"h", "conv"}`` for
-    rglru (recurrent state in float32)."""
+    rglru (recurrent state in float32); an encoder-decoder's layers add
+    the cross-attention's ``{"xk", "xv"}`` over the audio frames."""
     if spec.kind in ("attn", "local"):
         S = _cache_len(spec, cfg, max_len)
         shape = (batch, cfg.n_kv, S, cfg.head_dim)
-        return {"k": (shape, dtype), "v": (shape, dtype)}
-    if spec.kind == "mamba":
+        out = {"k": (shape, dtype), "v": (shape, dtype)}
+    elif spec.kind == "mamba":
         d_inner, H, P = ssm_dims(cfg)
         conv_ch = d_inner + 2 * cfg.ssm_state
-        return {"state": ((batch, H, P, cfg.ssm_state), torch.float32),
-                "conv": ((batch, 3, conv_ch), dtype)}
-    w = cfg.rnn_width or cfg.d_model                # rglru
-    return {"h": ((batch, w), torch.float32),
-            "conv": ((batch, cfg.conv_width - 1, w), dtype)}
+        out = {"state": ((batch, H, P, cfg.ssm_state), torch.float32),
+               "conv": ((batch, 3, conv_ch), dtype)}
+    else:                                           # rglru
+        w = cfg.rnn_width or cfg.d_model
+        out = {"h": ((batch, w), torch.float32),
+               "conv": ((batch, cfg.conv_width - 1, w), dtype)}
+    if cfg.is_encdec:
+        shape = (batch, cfg.n_kv, cfg.n_audio_frames, cfg.head_dim)
+        out.update(xk=(shape, dtype), xv=(shape, dtype))
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -213,7 +243,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Per stage, per period entry: the layer kind's cache leaves as
     ``[count, batch, ...]`` zeros (``k``/``v`` of ``[count, batch, n_kv,
     S_cache, head_dim]`` for attention)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = (_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype
              else _cdt(cfg))
@@ -306,13 +335,36 @@ def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, p, h: torch.Tensor,
     return {"k": ck, "v": cv}
 
 
+def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
+                xv: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] attends, unmasked, to the encoder's K/V [B, KV, F, hd]."""
+    B, S, _ = x.shape
+    q = qmm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim
+                                ).transpose(1, 2)
+    o = attention(q, xk, xv, causal=False, window=0)
+    return qmm(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+
+
+def _make_cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """The cross-attention's K/V [B, KV, F, hd] of the encoder output."""
+    B, F_, _ = enc_out.shape
+    KV, hd = cfg.n_kv, cfg.head_dim
+    xk = qmm(enc_out, p["wk"]).reshape(B, F_, KV, hd).transpose(1, 2)
+    xv = qmm(enc_out, p["wv"]).reshape(B, F_, KV, hd).transpose(1, 2)
+    return xk, xv
+
+
 def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
                 mode: str, cache: Optional[Dict] = None,
-                pos: Optional[int] = None):
+                pos: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None):
     """mode: 'train' | 'prefill' | 'decode' ('train' is prefill without
     the caches).  Returns (x, new_cache): the layer's cache leaves as
     computed (attention decode returns the cache tensors it updated in
-    place; the recurrent kinds return new state tensors)."""
+    place; the recurrent kinds return new state tensors).  In an
+    encoder-decoder stack, train and prefill compute the cross K/V from
+    ``enc_out`` (prefill returns them for the cache), decode reads them
+    from the cache."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     new_cache: Dict[str, Any] = {}
@@ -343,6 +395,15 @@ def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
         if mode != "train":
             new_cache.update({"h": hh, "conv": cv})
     x = x + o
+    if cfg.is_encdec and (enc_out is not None or mode == "decode"):
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        if mode == "decode":
+            xk, xv = cache["xk"], cache["xv"]
+        else:
+            xk, xv = _make_cross_kv(cfg, p["xattn"], enc_out)
+        if mode != "train":
+            new_cache.update({"xk": xk, "xv": xv})
+        x = x + _cross_attn(cfg, p["xattn"], hx, xk, xv)
     if spec.kind != "mamba":
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe:
@@ -359,24 +420,82 @@ def _layer_params(tree, j: int):
     return tree[j]
 
 
+def _per_layer(tree, count: int) -> List:
+    """A ``[count, ...]``-stacked params or cache subtree as ``count``
+    per-layer subtrees of views, one ``unbind`` per leaf (a cache layer's
+    view is written in place with ``copy_``).  Its backward stacks the
+    layers' gradients once; slicing each layer out on its own
+    (:func:`_layer_params`) would make autograd build and add up ``count``
+    zero-padded full-size gradients per leaf."""
+    if isinstance(tree, dict):
+        kids = {k: _per_layer(v, count) for k, v in tree.items()}
+        return [{k: kids[k][j] for k in kids} for j in range(count)]
+    return tree.unbind(0)
+
+
 # --------------------------------------------------------------------------
 # stage loop
 # --------------------------------------------------------------------------
+#: what ``remat_policy="dots"`` keeps: the outputs of 2-D matmuls, which
+#: every projection lowers to (the reference's
+#: ``dots_with_no_batch_dims_saveable``); batched products — attention's
+#: and the experts' einsums — are recomputed, as there
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(policy: str) -> Dict:
+    """``torch.utils.checkpoint.checkpoint`` arguments for a remat policy.
+    Nothing in a layer draws random numbers, so no RNG state is kept."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    elif policy != "nothing":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return kw
+
+
+def _train_layer(spec, cfg, p, x, enc_out):
+    return apply_layer(spec, cfg, p, x, mode="train", enc_out=enc_out)[0]
+
+
 def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                mode: str, caches=None, pos: Optional[int] = None,
-               stage_list=None):
+               enc_out: Optional[torch.Tensor] = None, stage_list=None):
     """Run every stage's period ``count`` times (a Python loop where the
     reference scans).  ``caches`` is updated in place — prefill writes each
     layer's recomputed K/V and recurrent state into it, decode the new
-    token's — and returned: (x, caches).  Mode 'train' takes no caches."""
+    token's — and returned: (x, caches).  Mode 'train' takes no caches;
+    with ``cfg.remat``, when autograd records the forward, each layer runs
+    under ``torch.utils.checkpoint`` (its activations are recomputed in
+    the backward, as under the reference's ``jax.checkpoint``)."""
     stage_list = stage_list or cfg.stages()
+    remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
+             and (x.requires_grad
+                  or any(t.requires_grad for t in leaves(stages_params))))
+    remat_kw = _remat_kwargs(cfg.remat_policy) if remat else None
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
+        layers = [_per_layer(sp[i], stage.count)
+                  for i in range(len(stage.period))]
+        layer_caches = (None if caches is None else
+                        [_per_layer(caches[si][i], stage.count)
+                         for i in range(len(stage.period))])
         for j in range(stage.count):
             for i, spec in enumerate(stage.period):
-                cc = (None if caches is None
-                      else _layer_params(caches[si][i], j))
-                x, nc = apply_layer(spec, cfg, _layer_params(sp[i], j), x,
-                                    mode=mode, cache=cc, pos=pos)
+                pp = layers[i][j]
+                if remat:
+                    x = torch_checkpoint.checkpoint(
+                        _train_layer, spec, cfg, pp, x, enc_out, **remat_kw)
+                    continue
+                cc = None if caches is None else layer_caches[i][j]
+                x, nc = apply_layer(spec, cfg, pp, x, mode=mode, cache=cc,
+                                    pos=pos, enc_out=enc_out)
                 for name, t in nc.items():
                     if t is not cc[name]:
                         cc[name].copy_(t)
@@ -386,9 +505,15 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
-def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor
+def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
+                  extra_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
-    return params["embed"][tokens].to(_cdt(cfg))
+    """Token embeddings in the compute dtype, ``extra_embeds`` (vision
+    tokens) in front."""
+    x = params["embed"][tokens].to(_cdt(cfg))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(_cdt(cfg)), x], dim=1)
+    return x
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -401,41 +526,71 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return (x @ head.to(x.dtype)).float()
 
 
+def _run_encoder(cfg: ModelConfig, params,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings [B, F, d]:
+    bidirectional attention with RoPE, a plain ``@ wo`` and a gelu MLP
+    per layer, then the encoder's final norm."""
+    cdt = _cdt(cfg)
+    x = frames.to(cdt)
+    for p in _per_layer(params["encoder"]["stages"][0][0], cfg.n_enc_layers):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        B, S, _ = h.shape
+        q, k, v = _qkv(cfg, p["attn"], h, torch.arange(S, device=h.device))
+        o = attention(q, k, v, causal=False, window=0)
+        x = x + matmul(o.transpose(1, 2).reshape(B, S, -1), p["attn"]["wo"])
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = (x + mlp(p["mlp"], h2, "gelu")).to(cdt)
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
+def _inputs(cfg: ModelConfig, params, batch: Dict):
+    """(decoder input embeddings, encoder output or None) of a batch."""
+    enc_out = (_run_encoder(cfg, params, batch["audio_frames"])
+               if cfg.is_encdec else None)
+    extra = batch["vision_embeds"] if cfg.n_vis_tokens else None
+    return _embed_tokens(cfg, params, batch["tokens"], extra), enc_out
+
+
 def forward_train(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
-    """batch["tokens"] [B, S] → logits [B, S, V] (decoder-only stacks; the
-    reference's vision and audio inputs are not ported)."""
-    _check_supported(cfg)
-    if cfg.n_vis_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: vision embeddings are not ported yet "
-            f"(ROADMAP.md § A5b)")
-    x = _embed_tokens(cfg, params, batch["tokens"])
-    x, _ = run_stages(cfg, params["stages"], x, mode="train")
+    """batch: tokens [B, S'] (+ audio_frames / vision_embeds) → logits
+    [B, S, V] (S = n_vis_tokens + S' for vision stacks)."""
+    x, enc_out = _inputs(cfg, params, batch)
+    x, _ = run_stages(cfg, params["stages"], x, mode="train",
+                      enc_out=enc_out)
     return _logits(cfg, params, x)
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
+    """Mean over positions of logsumexp minus the label's logit, the
+    vision positions sliced off first.  The label logit is a ``gather``:
+    exact, and equal to the reference's masked sum over the vocab."""
+    logits = forward_train(cfg, params, batch)
+    if cfg.n_vis_tokens:
+        logits = logits[:, cfg.n_vis_tokens:]
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = batch["labels"].long()
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (lse - ll).mean()
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, List]:
-    """batch["tokens"] [B, S] → (last-position logits [B, 1, V], caches)
-    (decoder-only stacks; the reference's vision and audio inputs are not
-    ported)."""
-    _check_supported(cfg)
-    if cfg.n_vis_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: vision embeddings are not ported yet "
-            f"(ROADMAP.md § A5b)")
-    tokens = batch["tokens"]
-    x = _embed_tokens(cfg, params, tokens)
+    """batch: tokens [B, S'] (+ audio_frames / vision_embeds) →
+    (last-position logits [B, 1, V], caches).  ``max_len`` bounds the
+    positions, vision tokens included."""
+    x, enc_out = _inputs(cfg, params, batch)
     caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
     x, caches = run_stages(cfg, params["stages"], x, mode="prefill",
-                           caches=caches)
+                           caches=caches, enc_out=enc_out)
     return _logits(cfg, params, x[:, -1:]), caches
 
 
 def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor,
                 pos: int) -> Tuple[torch.Tensor, List]:
     """token [B, 1] int; pos int → (logits [B, 1, V], caches).  The cache
-    tensors are updated in place and returned."""
+    tensors are updated in place and returned; an encoder-decoder's
+    cross-attention reads the K/V prefill left there."""
     x = _embed_tokens(cfg, params, token)
     x, caches = run_stages(cfg, params["stages"], x, mode="decode",
                            caches=caches, pos=int(pos))

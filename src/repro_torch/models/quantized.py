@@ -3,9 +3,11 @@
 ``quantize_serving_params`` maps every dense matmul leaf (wq, wk, wv, wo,
 w1, w2, w3, lm_head) to ``{"q8": int8[W.shape], "s": f32[..., N]}``, with
 per-column scales; MoE expert tensors stay dense, as in the reference.
-``qmm`` dispatches on that structure.  It is the reference's exact
-int8 x int8 → int32 dot with per-row activation scales, not the bit-plane
-kernel: on CUDA the dot is ``torch._int_mm``, on the CPU the same call.
+``qmm`` dispatches on that structure.  A dense product computes in the
+operands' promoted dtype, as the reference's ``x @ w`` does; a quantized
+one is the reference's exact int8 x int8 → int32 dot with per-row
+activation scales, not the bit-plane kernel: on CUDA the dot is
+``torch._int_mm``, on the CPU the same call.
 
 ``q8`` holds the reference's values with the reference's shape, stored
 column-major (each [K, N] matrix is the transpose of a contiguous
@@ -18,6 +20,7 @@ no counterpart here: the port has no abstract parameter trees.
 """
 from __future__ import annotations
 
+from functools import reduce
 from typing import Any
 
 import torch
@@ -58,6 +61,23 @@ def quantize_serving_params(params):
     return tx([], params)
 
 
+def promoted(*ts: torch.Tensor):
+    """The tensors cast to their common dtype (``torch.promote_types``),
+    the dtype JAX computes a mixed product or scatter in: a bfloat16
+    activation times a float32 weight is a float32 product there, where
+    torch's matmul, einsum and index ops refuse mixed operands.  A tensor
+    already of that dtype comes back as it is, so float32 runs are
+    untouched."""
+    dt = reduce(torch.promote_types, (t.dtype for t in ts))
+    return tuple(t.to(dt) for t in ts)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' promoted dtype (see :func:`promoted`)."""
+    a, b = promoted(a, b)
+    return a @ b
+
+
 def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and "q8" in w
 
@@ -81,7 +101,7 @@ def _int_mm(xi: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for dense or quantized (int8 + per-column scale) weights."""
     if not is_quantized(w):
-        return x @ w
+        return matmul(x, w)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).to(torch.float32)
     xs = div_exact(torch.clamp(x2.abs().amax(dim=-1), min=1e-8), 127.0)

@@ -14,7 +14,8 @@ reference uses ``lax.associative_scan``); decode is the O(1) update.
 
 Block structure (Griffin temporal block): linear in (2 branches), causal
 conv(``conv_width``) on the recurrent branch, RG-LRU, gated output
-projection.
+projection.  Products compute in their operands' promoted dtype, as
+the reference's ``@`` does (``quantized.matmul``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from .quantized import matmul
 
 RGLRU_C = 8.0
 
@@ -57,8 +60,8 @@ def _conv(x: torch.Tensor, conv_w: torch.Tensor, conv_state=None):
 
 
 def _gates(params, xb: torch.Tensor):
-    r = torch.sigmoid(xb @ params["w_a"]).float()
-    i = torch.sigmoid(xb @ params["w_i"]).float()
+    r = torch.sigmoid(matmul(xb, params["w_a"])).float()
+    i = torch.sigmoid(matmul(xb, params["w_i"])).float()
     log_a = -RGLRU_C * F.softplus(params["lambda_p"]) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
@@ -82,22 +85,22 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_forward(params, x: torch.Tensor, cfg):
     """x [B, S, d] → (y [B, S, d], h_final [B, w], conv_state)."""
-    xb = x @ params["in_x"]
-    gate = x @ params["in_gate"]
+    xb = matmul(x, params["in_x"])
+    gate = matmul(x, params["in_gate"])
     xb, conv_state = _conv(xb, params["conv_w"])
     a, b = _gates(params, xb)                          # [B, S, w] f32
     h = linear_scan(a, b)
     y = h * F.gelu(gate.float(), approximate="tanh")
-    return y.to(x.dtype) @ params["out"], h[:, -1], conv_state
+    return matmul(y.to(x.dtype), params["out"]), h[:, -1], conv_state
 
 
 def rglru_decode_step(params, x: torch.Tensor, h: torch.Tensor,
                       conv_state: torch.Tensor, cfg):
     """x [B, 1, d]; h [B, w] → (y [B, 1, d], h', conv_state')."""
-    xb = x @ params["in_x"]
-    gate = x @ params["in_gate"]
+    xb = matmul(x, params["in_x"])
+    gate = matmul(x, params["in_gate"])
     xb, conv_state = _conv(xb, params["conv_w"], conv_state)
     a, b = _gates(params, xb)                          # [B, 1, w]
     h = a[:, 0] * h + b[:, 0]
     y = h[:, None] * F.gelu(gate.float(), approximate="tanh")
-    return y.to(x.dtype) @ params["out"], h, conv_state
+    return matmul(y.to(x.dtype), params["out"]), h, conv_state

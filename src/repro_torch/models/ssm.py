@@ -9,7 +9,8 @@ cache, only a constant-size state per sequence.
 Shapes: d_inner = expand·d_model = H·P heads; B/C projections share one
 group (G=1); state size N.  As in the reference, the causal conv is 4
 wide whatever ``cfg.conv_width`` says, so the decode conv state holds 3
-rows.
+rows.  Products compute in their operands' promoted dtype, as the
+reference's ``@`` does (``quantized.matmul``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .quantized import matmul
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int]:
@@ -79,7 +82,7 @@ def mamba_forward(params, x: torch.Tensor, cfg):
     N = cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
     pad = (-S) % Q
-    proj = x @ params["in_proj"]
+    proj = matmul(x, params["in_proj"])
     z, xBC, dt_raw = _split_proj(cfg, proj)
     xBC, conv_state = _conv(xBC, params["conv_w"])
     xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
@@ -125,7 +128,7 @@ def mamba_forward(params, x: torch.Tensor, cfg):
         Bsz, Sp, H, P)[:, :S]
     y = y.reshape(Bsz, S, d_inner)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
-    return (y @ params["out_proj"]).to(x.dtype), h, conv_state
+    return matmul(y, params["out_proj"]).to(x.dtype), h, conv_state
 
 
 def mamba_decode_step(params, x: torch.Tensor, state: torch.Tensor,
@@ -135,7 +138,7 @@ def mamba_decode_step(params, x: torch.Tensor, state: torch.Tensor,
     Bsz = x.shape[0]
     d_inner, H, P = ssm_dims(cfg)
     N = cfg.ssm_state
-    proj = x @ params["in_proj"]
+    proj = matmul(x, params["in_proj"])
     z, xBC, dt_raw = _split_proj(cfg, proj)
     xBC, conv_state = _conv(xBC, params["conv_w"], conv_state)
     xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
@@ -151,4 +154,4 @@ def mamba_decode_step(params, x: torch.Tensor, state: torch.Tensor,
         + params["D"][None, :, None] * xh
     y = y.reshape(Bsz, 1, d_inner)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
-    return (y @ params["out_proj"]).to(x.dtype), state, conv_state
+    return matmul(y, params["out_proj"]).to(x.dtype), state, conv_state

@@ -2,6 +2,7 @@
 the reference's params bridged to the port through numpy, the reference
 model's greedy decode, a page pool without a model, and the fixture that
 runs a module's torch ops on one thread."""
+import dataclasses
 from functools import lru_cache
 
 import jax
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import smoke_config
 from repro.launch.serve import serve_config
 from repro.models import model as jm
 from repro_torch.core.vbi.blocks import PagePool
@@ -38,6 +40,23 @@ def bridged(arch: str):
     jp = jm.init_params(cfg, jax.random.key(0))
     tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return cfg, jp, tp
+
+
+@lru_cache(maxsize=None)
+def _smoke_params(arch: str):
+    jp = jm.init_params(smoke_config(arch), jax.random.key(0))
+    return jp, tm.params_from_numpy(jax.tree.map(np.asarray, jp),
+                                    device="cpu")
+
+
+def bridged_smoke(arch: str, compute_dtype: str = "float32"):
+    """(cfg, JAX params, port params on the CPU) for ``arch``'s smoke
+    config (not the serve config, which turns whisper into a decoder-only
+    stack) at ``compute_dtype``; the params (float32, which the compute
+    dtype does not change) are built once per test process and shared:
+    a test must not update them in place."""
+    cfg = dataclasses.replace(smoke_config(arch), compute_dtype=compute_dtype)
+    return (cfg, *_smoke_params(arch))
 
 
 #: the reference decode step, compiled once per cache shape

@@ -64,7 +64,19 @@ runs on a machine without JAX:
     quantized layers, ``qmm`` (``torch._int_mm``) and the quantized model
     on the card agree with the CPU (1e-6 relative for one layer: the same
     int32 sums, float32 scales; 1e-4 for logits: float32 layers summed in
-    another order on the card).
+    another order on the card);
+  * training: three train steps of the qwen3 smoke config at float32
+    compute on the card and on the CPU from the same params and batches
+    agree (loss and grad norm 1e-5 relative; params 4e-5 absolute: Adam
+    moves an element by up to its learning rate whatever the size of its
+    gradient, so one whose gradient is at rounding level may step either
+    way, and the three steps' rates, 3e-6, 6e-6 and 9e-6, bound that at
+    2 x 1.8e-5); a train step at the configs' own bfloat16 compute (qwen3,
+    the MoE of mixtral, internvl2's vision slice with its 4 microbatches,
+    whisper's encoder) runs under ``set_sync_debug_mode("error")``, its
+    batch staged through pinned memory; whisper-small's prefill and two
+    decode steps on the card give the CPU's logits (1e-4) and the CPU's
+    greedy tokens.
 """
 import numpy as np
 import pytest
@@ -88,6 +100,12 @@ from repro_torch.launch.serve import serve_config
 from repro_torch.models import model as tm
 from repro_torch.models.model import init_params
 from repro_torch.models.quantized import qmm, quantize_serving_params
+from repro_torch.configs import smoke_config
+from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.device import stage
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.tree import leaves
 from repro_torch.serve.engine import PagedEngine, batched_paged_attention
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Scheduler
@@ -1106,3 +1124,78 @@ def test_smoke_example_on_card_goes_through_the_kernel(dev, monkeypatch):
     q_plain = simdram_quantized_lm.q_forward(res["cfg"], res["params"],
                                              res["qls"], res["tokens"])
     assert torch.equal(res["q_logits"], q_plain)
+
+
+# -- training ----------------------------------------------------------------
+def _train_batch(cfg, B, S_text, step, device):
+    b = SyntheticLMData(cfg, B, cfg.n_vis_tokens + S_text, 0).batch_at(step)
+    return {k: stage(v, device) for k, v in b.items()}
+
+
+def _init_state(cfg, device):
+    return _to(init_train_state(cfg, AdamWConfig(), seed=0, device="cpu"),
+               device)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    import dataclasses
+    cfg = dataclasses.replace(smoke_config("qwen3-0.6b"),
+                              compute_dtype="float32")
+    step = make_train_step(cfg, AdamWConfig())
+    cpu = torch.device("cpu")
+    states = {d: _init_state(cfg, d) for d in (cpu, dev)}
+    for i in range(3):
+        out = {d: step(states[d], _train_batch(cfg, 4, 32, i, d))
+               for d in (cpu, dev)}
+        states = {d: out[d][0] for d in out}
+        for k in ("loss", "grad_norm"):
+            torch.testing.assert_close(out[dev][1][k].cpu(), out[cpu][1][k],
+                                       rtol=1e-5, atol=0)
+    # params 1e-6 absolute (chip_smoke.py read 1.5e-8); each moment leaf
+    # by the norm of its difference over its own norm, 1e-5 (Adam moves
+    # an element by about its learning rate whatever its gradient, so
+    # the params alone would miss wrong gradients; m and v do not)
+    for a, b in zip(leaves(states[dev]["params"]),
+                    leaves(states[cpu]["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)
+    for name in ("m", "v"):
+        for a, b in zip(leaves(states[dev]["opt"][name]),
+                        leaves(states[cpu]["opt"][name])):
+            assert float((a.cpu() - b).norm() / b.norm()) < 1e-5, name
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x7b",
+                                  "internvl2-26b", "whisper-small"])
+def test_train_step_is_sync_free(dev, arch):
+    cfg = smoke_config(arch)
+    assert cfg.compute_dtype == "bfloat16"
+    step = make_train_step(cfg, AdamWConfig())
+    state = _init_state(cfg, dev)
+    state, m = step(state, _train_batch(cfg, 4, 16, 0, dev))
+    batch = _train_batch(cfg, 4, 16, 1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(m["loss"])) and int(state["opt"]["step"]) == 2
+
+
+def test_whisper_prefill_decode_on_card_matches_cpu(dev):
+    import dataclasses
+    cfg = dataclasses.replace(smoke_config("whisper-small"),
+                              compute_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    b = SyntheticLMData(cfg, 2, 10, 0).batch_at(0)
+    batch = {k: torch.from_numpy(v) for k, v in b.items() if k != "labels"}
+    want, wc = tm.prefill(cfg, params, batch, 16)
+    got, gc = tm.prefill(cfg, _to(params, dev), _to(batch, dev), 16)
+    torch.testing.assert_close(got.cpu(), want, **TOL_LOGITS)
+    nxt = want[:, 0].argmax(-1)[:, None]
+    for pos in (10, 11):
+        assert torch.equal(got[:, 0].argmax(-1).cpu(), nxt[:, 0])
+        want, wc = tm.decode_step(cfg, params, wc, nxt, pos)
+        got, gc = tm.decode_step(cfg, _to(params, dev), gc, nxt.to(dev), pos)
+        torch.testing.assert_close(got.cpu(), want, **TOL_LOGITS)
+        nxt = want[:, 0].argmax(-1)[:, None]

@@ -6,7 +6,9 @@ decode logits, caches and the same greedy tokens on the qwen3-0.6b
 (5 local : 1 global), recurrentgemma-9b (RG-LRU, RG-LRU, local),
 mamba2-1.3b (Mamba-2 only), mixtral-8x7b (sliding window, top-2 MoE) and
 qwen3-moe-235b-a22b (top-k MoE).  The prompt and the decode run past the
-smoke window of 16, so the ring caches wrap.  Tolerance: 1e-4 absolute and relative on float32 logits
+smoke window of 16, so the ring caches wrap.  internvl2-26b's prefill
+with vision embeddings prepended; a vision batch without them is refused
+by both packages.  Tolerance: 1e-4 absolute and relative on float32 logits
 (two frameworks, different summation orders through the layer stack)."""
 import jax.numpy as jnp
 import numpy as np
@@ -83,16 +85,30 @@ def test_windowed_decode_keeps_ring_tail():
 
 @pytest.mark.parametrize("with_vision", [False, True])
 def test_prefill_refuses_vision_configs(with_vision):
-    """The reference's ``prefill`` prepends ``vision_embeds`` when
-    ``cfg.n_vis_tokens`` is set; the port has no vision path yet, so it
-    refuses such a config instead of returning text-only logits."""
-    from repro_torch.configs import smoke_config
-    cfg = smoke_config("internvl2-26b")
+    """The vision path of ``prefill``: with ``vision_embeds`` the port
+    prepends them as the reference does (logits and every cache leaf
+    within TOL); a vision config's batch without them is refused, by both
+    packages alike, instead of giving text-only logits (P4)."""
+    from _torch_parity import bridged_smoke
+    cfg, jp, tp = bridged_smoke("internvl2-26b")
     assert cfg.n_vis_tokens
-    params = tm.init_params(cfg, seed=0, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)}
     if with_vision:
-        batch["vision_embeds"] = torch.zeros((1, cfg.n_vis_tokens,
-                                              cfg.d_model))
-    with pytest.raises(NotImplementedError, match="§ A5b"):
-        tm.prefill(cfg, params, batch, 8)
+        batch["vision_embeds"] = (rng.standard_normal(
+            (2, cfg.n_vis_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    max_len = cfg.n_vis_tokens + 8
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if not with_vision:
+        with pytest.raises(KeyError, match="vision_embeds"):
+            jm.prefill(cfg, jp, jb, max_len)
+        with pytest.raises(KeyError, match="vision_embeds"):
+            tm.prefill(cfg, tp, tb, max_len)
+        return
+    jl, jc = jm.prefill(cfg, jp, jb, max_len)
+    tl, tc = tm.prefill(cfg, tp, tb, max_len)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _same_caches(jc, tc, "vision prefill")
+    # the prompt's K/V sit after the vision tokens' in the cache
+    assert bool((tc[0][0]["k"][:, :, :, cfg.n_vis_tokens + 4] != 0).any())

@@ -6,7 +6,10 @@
     ``init_params`` tree over with the same nesting, shape, dtype and bytes;
   * the port's own ``init_params`` draws the same tree layout, shapes,
     dtypes and scales from a ``torch.Generator`` (constant leaves equal),
-    for every layer kind: attention, RG-LRU, Mamba-2, dense and MoE;
+    for every layer kind: attention, RG-LRU, Mamba-2, dense and MoE, and
+    for whisper-small's encoder tree and cross-attention leaves and
+    internvl2-26b (their smoke configs: the serve config turns whisper
+    into a decoder-only stack);
   * the serve engine's stack geometry (full / ring / RG-LRU / SSM layers,
     window, ring pages, per-stage plans) is the reference's, field by
     field; encoder-decoder stacks are refused, and a request for the card
@@ -19,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import bridged, one_torch_thread
+from _torch_parity import bridged, bridged_smoke, one_torch_thread
 from repro import configs as jcfg
 from repro.launch.serve import serve_config as j_serve_config
 from repro.models import model as jm
@@ -33,6 +36,8 @@ from repro_torch.serve.engine import build_stack_geom
 MIXED = ["gemma3-12b", "mixtral-8x7b", "recurrentgemma-9b", "mamba2-1.3b",
          "qwen3-moe-235b-a22b"]
 ARCHS = ["qwen3-0.6b", "qwen2.5-3b", "nemotron-4-340b"] + MIXED
+#: held at their smoke configs, not the serve configs
+SMOKE_ONLY = ["whisper-small", "internvl2-26b"]
 
 
 def _leaves(tree, prefix=""):
@@ -57,10 +62,10 @@ def test_configs_match_reference(arch):
                 == dataclasses.asdict(j_serve_config(arch, smoke)))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SMOKE_ONLY)
 def test_params_bridge_round_trip(arch):
     """Every leaf survives numpy → torch → numpy bit for bit."""
-    cfg, jp, tp = bridged(arch)
+    cfg, jp, tp = (bridged_smoke if arch in SMOKE_ONLY else bridged)(arch)
     ref = dict(_leaves(jax.tree.map(np.asarray, jp)))
     got = dict(_leaves(tp))
     assert got.keys() == ref.keys()
@@ -70,13 +75,14 @@ def test_params_bridge_round_trip(arch):
         assert b.tobytes() == a.tobytes(), path
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + SMOKE_ONLY)
 def test_init_params_layout_matches_reference(arch):
     """Same tree, shapes, dtypes; same init scales: the two sample stds
     within 5%, or within 3 standard errors of their ratio where a leaf is
     too small for 5% (sqrt(1/N) for two draws of N normal values each:
     the smoke configs' narrow K/V and conv leaves, N under 3,600)."""
-    cfg = serve_config(arch)
+    cfg = (tcfg.smoke_config(arch) if arch in SMOKE_ONLY
+           else serve_config(arch))
     ref = dict(_leaves(jax.tree.map(np.asarray,
                                     jm.init_params(cfg, jax.random.key(0)))))
     got = dict(_leaves(tm.init_params(cfg, seed=0, device="cpu")))
@@ -91,6 +97,8 @@ def test_init_params_layout_matches_reference(arch):
             assert abs(b.std() / a.std() - 1) < tol, path
     again = dict(_leaves(tm.init_params(cfg, seed=0, device="cpu")))
     assert all(torch.equal(again[p], got[p]) for p in got)
+    if cfg.is_encdec:
+        assert "/encoder/final_norm" in got and "/stages/0/0/xattn/wq" in got
 
 
 @pytest.mark.parametrize("arch", MIXED)
