@@ -128,6 +128,12 @@ Phases (any failure exits non-zero and prints no result line):
               ``lm_loss`` over them, through the vision slice), the
               params moving.  Each model is freed before the next; the
               checkpoints live under ``build/train`` and are removed;
+ 4h. mesh   — phase 4's requests on a 1x1 device mesh through the
+              launcher (``--mesh-shape 1x1 --kv-layout shard``: the
+              kernel engine on ``make_host_mesh(1, 1)``): tokens equal to
+              phase 4's, launches 28 x token steps, no collective; one
+              horizon under ``set_sync_debug_mode("error")``; a horizon's
+              host ms beside phase 4's.  It runs after 4g, before 11;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -209,6 +215,7 @@ import itertools
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -693,6 +700,93 @@ def phase_sync_free(torch, engine, card):
               f"attention (launches, ms): {attn}")
     for blk in list(engine.alloc.blocks.values()):
         engine.alloc.free(blk)
+    return call_ms
+
+
+# -- serving on a device mesh: the 1x1 mesh on the card ------------------------
+MESH_ARGV = SERVE_ARGV + ["--mesh-shape", "1x1", "--kv-layout", "shard"]
+
+
+def _horizon_turns(torch, engines, turns=4, k=8):
+    """Host ms of one decode horizon (K = ``k``, every slot) per engine,
+    the engines in turns (a, b, b, a) ``turns`` times after one warm
+    horizon each; ``{name: [ms]}``.  Frees the slots it took."""
+    args = {}
+    for name, eng in engines.items():
+        S, dev = eng.max_seqs, eng.device
+        for s in range(S):
+            eng.alloc.reserve_span(eng.alloc.alloc(s), 4, k * (2 * turns + 1))
+        eng.prefill_chunk(
+            torch.arange(1, 5, dtype=torch.int32, device=dev).repeat(S, 1),
+            torch.full((S,), 4, dtype=torch.int32, device=dev))
+        args[name] = (torch.full((S,), 7, dtype=torch.int32, device=dev),
+                      torch.ones((S,), dtype=torch.bool, device=dev),
+                      torch.full((S,), k, dtype=torch.int32, device=dev), k)
+        eng.decode_many(*args[name])
+    torch.cuda.synchronize()
+    a, b = list(engines)
+    ms = {a: [], b: []}
+    for name in [a, b, b, a] * turns:
+        t0 = time.perf_counter()
+        engines[name].decode_many(*args[name])
+        torch.cuda.synchronize()
+        ms[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+    for eng in engines.values():
+        for blk in list(eng.alloc.blocks.values()):
+            eng.alloc.free(blk)
+    return ms
+
+
+def phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms):
+    """Phase 4's requests on a 1x1 device mesh through the launcher
+    (``--mesh-shape 1x1 --kv-layout shard``: ``PagedEngine(mesh=
+    make_host_mesh(1, 1), attn_impl="kernel")``): the same tokens as phase
+    4, (full layers) x token steps kernel launches, no collective; one
+    horizon under ``set_sync_debug_mode("error")`` and its host ms beside
+    phase 4's; then horizons of an unmeshed engine on the same params and
+    of the mesh engine in turns.  Returns the launches."""
+    from repro_torch.serve.engine import PagedEngine
+    box = {}
+
+    def run():
+        from repro_torch.launch import serve
+        box["out"] = serve.main(MESH_ARGV)
+        return box["out"]
+    launches, engine = phase_serve(torch, pa, card, run, tag="mesh",
+                                   reference=False)
+    outs = {r.rid: r.out for r in box.pop("out")[0]}
+    if outs != serve_outs:
+        _fail(f"[mesh] 1x1 mesh tokens {outs} differ from phase 4's "
+              f"{serve_outs}")
+    mesh = engine.mesh
+    if (mesh is None or mesh.shape != {"data": 1, "model": 1}
+            or engine.kv_layout != "shard" or engine.attn_impl != "kernel"
+            or len(engine.placement) != 1):
+        _fail(f"[mesh] the launcher's engine is not the kernel engine on a "
+              f"1x1 mesh: {mesh}, {engine.kv_layout}, {engine.attn_impl}, "
+              f"{engine.placement}")
+    served = {k: dict(v) for k, v in mesh.collectives.items()}
+    horizon_ms = phase_sync_free(torch, engine, card)
+    plain = PagedEngine(engine.cfg, engine.params,
+                        page_size=engine.page_size, max_seqs=engine.max_seqs,
+                        n_pages=engine.n_pages, attn_impl="kernel",
+                        device=engine.device)
+    turns = _horizon_turns(torch, {"plain": plain, "mesh": engine})
+    if any(c["calls"] or c["bytes"] for c in mesh.collectives.values()):
+        _fail(f"[mesh] a 1x1 mesh made collectives: {mesh.collectives}")
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"[mesh] {card}: qwen3-0.6b on a 1x1 mesh (kv_layout "
+          f"{engine.kv_layout}, placement {engine.placement}, attn_impl "
+          f"{engine.attn_impl}): tokens of all 6 requests equal phase 4's; "
+          f"{launches} kernel launches; collectives after the serve "
+          f"{served} and after the horizons {mesh.collectives}; "
+          f"decode_many(K=8) host clock {horizon_ms:.3f} ms on the mesh "
+          f"engine against {serve_horizon_ms:.3f} ms in phase 4")
+    print(f"[mesh] {card}: decode_many(K=8) host ms in turns (plain, mesh, "
+          f"mesh, plain) x 4 on the same params: plain {turns['plain']}, "
+          f"mesh {turns['mesh']}; medians {med['plain']:.3f} and "
+          f"{med['mesh']:.3f}, mesh / plain {med['mesh'] / med['plain']:.4f}")
+    return launches
 
 
 # -- prefix sharing: the prefix cache, shared and COW pages, overlap --------
@@ -3323,7 +3417,7 @@ def main() -> int:
         return box["out"]
     launches, engine = phase_serve(torch, pa, card, serve_run)
     serve_outs = {r.rid: r.out for r in box.pop("out")[0]}
-    phase_sync_free(torch, engine, card)
+    serve_horizon_ms = phase_sync_free(torch, engine, card)
     del engine
     torch.cuda.empty_cache()
     print(f"[serve] phase took {time.perf_counter() - t0:.1f} s")
@@ -3374,6 +3468,11 @@ def main() -> int:
 
     _free(torch)
     t0 = time.perf_counter()
+    mesh_launches = phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms)
+    print(f"[mesh] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
     ring_err, ring_rows, hetero_launches = run_hetero()
     print(f"[hetero] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -3399,6 +3498,7 @@ def main() -> int:
                   for mode, n in traffic_launches.items()},
                **{f"qwen3-0.6b chaos {mode}": n
                   for mode, n in chaos_launches.items()},
+               "qwen3-0.6b mesh 1x1": mesh_launches,
                **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -27,7 +27,7 @@ reference renders a leaf path (``repro_torch/tree.py``).
 A dtype numpy lacks (``bfloat16``) is stored widened to float32, which
 holds it exactly; :func:`restore_pytree` casts back to the template's
 dtype.  Restoring onto a device mesh (``shardings=``) is ROADMAP.md
-§ A14.
+§ A14b.
 """
 from __future__ import annotations
 
@@ -177,7 +177,7 @@ def restore_pytree(template, directory: str | Path, step: int,
     if shardings is not None:
         raise NotImplementedError(
             "restoring onto a device mesh (shardings=) is not ported yet "
-            "(ROADMAP.md § A14)")
+            "(ROADMAP.md § A14b)")
     step_dir, manifest = _manifest(directory, step)
     by_key = {e["key"]: e for e in manifest["leaves"]}
 

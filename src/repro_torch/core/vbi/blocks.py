@@ -566,32 +566,38 @@ class VBIAllocator:
         maps (plus the ring frames and recurrent rows of a RING/RECURRENT
         block) and copies them to the host with a blocking copy, so the
         arrays are complete before anyone reads them.  Control path: this
-        waits for the work enqueued before it."""
+        waits for the work enqueued before it.  On a mesh (the pool's
+        ``shardings``) each rank gathers its block and an all-gather makes
+        the whole image, the same bytes on every rank as the unmeshed
+        pool's."""
         n_pages = self.pages_for(block.n_tokens)
         charge = n_pages + getattr(self.pool, "aux_swap_pages", 0)
         state = self.pool.state
-        k, v = snapshot_block(state, block.slot, n_pages)
+        shardings = getattr(self.pool, "shardings", None)
+        k, v = snapshot_block(state, block.slot, n_pages, shardings)
         aux = None
         if block.props & (VBProps.RING | VBProps.RECURRENT):
             # bounded by declared property: O(window) + O(1) however long
             # the block decoded
             aux = tuple(_host(a) for a in snapshot_aux(
-                state, block.slot, self.pool.ring_row(block.slot)))
+                state, block.slot, self.pool.ring_row(block.slot),
+                shardings))
         return n_pages, charge, _host(k), _host(v), aux
 
     def _scatter(self, slot: int, k: np.ndarray, v: np.ndarray,
                  aux: Optional[tuple], n_pages: int, n_tokens: int) -> None:
         """Restore a host image onto ``slot``: each array reaches the
         device through a fresh pinned buffer (``device.py::stage``), then
-        one scatter of the pages and one of the aux state.  Enqueues work
-        only."""
+        one scatter of the pages and one of the aux state (on a mesh, of
+        this rank's block of each).  Enqueues work only."""
         state = self.pool.state
         dev = state.device
+        shardings = getattr(self.pool, "shardings", None)
         restore_block(state, slot, stage(k, dev), stage(v, dev), n_pages,
-                      n_tokens)
+                      n_tokens, shardings)
         if aux is not None:
             restore_aux(state, slot, self.pool.ring_row(slot),
-                        *(stage(a, dev) for a in aux))
+                        *(stage(a, dev) for a in aux), shardings=shardings)
 
     def swap_out(self, block: VirtualBlock) -> bool:
         """Demote the block to the host tier: copy its device pages (and
@@ -680,8 +686,11 @@ class VBIAllocator:
         img = BlockImage(
             tokens=list(tokens) if tokens is not None else [],
             n_tokens=block.n_tokens,
-            # sharing annotations are pool-local and die at the boundary
-            props=block.props & ~_SHARING,
+            # sharing annotations are pool-local and die at the boundary;
+            # so does the placement bit (the image is whole on the host,
+            # and the importing pool stamps its own placement), so a
+            # block's image is the same bytes and CRC from any mesh
+            props=block.props & ~(_SHARING | VBProps.SHARDED),
             page_size=self.pool.page_size, n_pages=n_pages, charge=charge,
             k=k, v=v, aux=aux, lineage=lineage, src_bid=block.bid,
             src_pool=self.trace_pool)

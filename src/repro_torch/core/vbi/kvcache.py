@@ -125,6 +125,20 @@ class PagedServeState:
         return self.page_table.device
 
 
+#: pool leaves a device mesh may shard over its ``model`` axis, and the
+#: candidate dims of each, tried in order
+#: (``distributed/sharding.py::serve_state_specs``): the translation
+#: leaves (page table, lengths, free stack, refcounts) stay replicated
+SERVE_STATE_SHARD_DIMS = {
+    "k_pages": (3, 4), "v_pages": (3, 4),       # [L, P, ps, n_kv, hd]
+    "k_ring": (3, 4), "v_ring": (3, 4),         # [L, rows, ps, n_kv, hd]
+    "rg_h": (2,),                               # [L, S, rnn_width]
+    "rg_conv": (3,),                            # [L, S, cw-1, rnn_width]
+    "ssm_state": (2,),                          # [L, S, H, P, N]
+    "ssm_conv": (3,),                           # [L, S, cw-1, ch]
+}
+
+
 def init_serve_state(n_layers: int, n_pages: int, page_size: int, n_kv: int,
                      head_dim: int, max_seqs: int, max_pages_per_seq: int,
                      dtype=torch.float32, n_ring_layers: int = 0,
@@ -132,35 +146,52 @@ def init_serve_state(n_layers: int, n_pages: int, page_size: int, n_kv: int,
                      conv_width: int = 4, n_ssm: int = 0, ssm_heads: int = 0,
                      ssm_proj: int = 0, ssm_state_size: int = 0,
                      ssm_conv_ch: int = 0, ssm_conv_width: int = 4,
-                     device: Union[str, torch.device] = "cuda"
+                     device: Union[str, torch.device] = "cuda",
+                     shard: Optional[Dict[str, Tuple[int, int]]] = None
                      ) -> PagedServeState:
     """Fresh pool on ``device``.  Page 0 is the null page (scratch target
     for masked-out slots, never attended to), so ``n_pages - 1`` pages are
     allocatable: ``free_stack = [1..n_pages]`` with ``free_top =
-    n_pages - 1``."""
-    device = resolve_device(device)
+    n_pages - 1``.
+
+    ``shard`` maps a pool leaf to ``(dim, n)``: the leaf is allocated as
+    one rank's block, its whole shape with ``dim`` divided by ``n`` (a
+    mesh's ``model`` shard; ``distributed/sharding.py``).  ``device="meta"``
+    gives the whole shapes without storage."""
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
     n_ring_pages = 1 + max_seqs * ring_pages if n_ring_layers else 1
     i32 = dict(dtype=torch.int32, device=device)
+    shard = shard or {}
 
-    def z(shape, dt=dtype):
+    def z(name, shape, dt=dtype):
+        if name in shard:
+            d, n = shard[name]
+            if shape[d] % n:
+                raise ValueError(f"{name} dim {d} of {shape} does not split "
+                                 f"into {n} blocks")
+            shape = shape[:d] + (shape[d] // n,) + shape[d + 1:]
         return torch.zeros(shape, dtype=dt, device=device)
 
+    kv = (n_layers, n_pages, page_size, n_kv, head_dim)
+    ring = (n_ring_layers, n_ring_pages, page_size, n_kv, head_dim)
     return PagedServeState(
-        k_pages=z((n_layers, n_pages, page_size, n_kv, head_dim)),
-        v_pages=z((n_layers, n_pages, page_size, n_kv, head_dim)),
+        k_pages=z("k_pages", kv),
+        v_pages=z("v_pages", kv),
         page_table=torch.zeros((max_seqs, max_pages_per_seq), **i32),
         seq_lens=torch.zeros((max_seqs,), **i32),
         slot_active=torch.zeros((max_seqs,), dtype=torch.bool, device=device),
         free_stack=torch.arange(1, n_pages + 1, **i32),
         free_top=torch.tensor(n_pages - 1, **i32),
         page_refcounts=torch.zeros((n_pages,), **i32),
-        k_ring=z((n_ring_layers, n_ring_pages, page_size, n_kv, head_dim)),
-        v_ring=z((n_ring_layers, n_ring_pages, page_size, n_kv, head_dim)),
-        rg_h=z((n_rg, max_seqs, rnn_width), torch.float32),
-        rg_conv=z((n_rg, max_seqs, conv_width - 1, rnn_width)),
-        ssm_state=z((n_ssm, max_seqs, ssm_heads, ssm_proj, ssm_state_size),
-                    torch.float32),
-        ssm_conv=z((n_ssm, max_seqs, ssm_conv_width - 1, ssm_conv_ch)),
+        k_ring=z("k_ring", ring),
+        v_ring=z("v_ring", ring),
+        rg_h=z("rg_h", (n_rg, max_seqs, rnn_width), torch.float32),
+        rg_conv=z("rg_conv", (n_rg, max_seqs, conv_width - 1, rnn_width)),
+        ssm_state=z("ssm_state", (n_ssm, max_seqs, ssm_heads, ssm_proj,
+                                  ssm_state_size), torch.float32),
+        ssm_conv=z("ssm_conv", (n_ssm, max_seqs, ssm_conv_width - 1,
+                                ssm_conv_ch)),
     )
 
 
@@ -312,31 +343,43 @@ def release_pages(state: PagedServeState, page_ids: torch.Tensor,
 # them with one scatter (the serve-path form of MTL.swap_out/swap_in; see
 # blocks.py::VBIAllocator)
 # --------------------------------------------------------------------------
-def snapshot_block(state: PagedServeState, slot: int,
-                   n_pages: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def snapshot_block(state: PagedServeState, slot: int, n_pages: int,
+                   shardings: Optional[Dict] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather the K/V of ``slot``'s first ``n_pages`` mapped pages (the
     reference gathers the whole row and slices it on the host): two
     device tensors of shape [n_layers, n_pages, page_size, n_kv,
     head_dim].  Enqueues a gather only; the caller copies the result to
-    the host before it releases the slot."""
+    the host before it releases the slot.  On a mesh (``shardings``, the
+    engine's ``{field: Sharding}``) each rank gathers its block and an
+    all-gather over the sharded dim makes the whole pages on every
+    rank."""
     pages = state.page_table[slot, :n_pages].long()
-    return (state.k_pages.index_select(1, pages),
-            state.v_pages.index_select(1, pages))
+    k = state.k_pages.index_select(1, pages)
+    v = state.v_pages.index_select(1, pages)
+    if shardings is not None:
+        k = shardings["k_pages"].whole(k)
+        v = shardings["v_pages"].whole(v)
+    return k, v
 
 
 def restore_block(state: PagedServeState, slot: int, k_blk: torch.Tensor,
-                  v_blk: torch.Tensor, n_pages: int,
-                  n_tokens: int) -> PagedServeState:
+                  v_blk: torch.Tensor, n_pages: int, n_tokens: int,
+                  shardings: Optional[Dict] = None) -> PagedServeState:
     """Swap-in, in place: pop ``n_pages`` pages off the device free stack
     (``free_stack[free_top - 1 - i]`` for page ``i``), install them as
     ``slot``'s page-table row and scatter the image's K/V (``k_blk``/
     ``v_blk`` on the device, [n_layers, >= n_pages, ...]) into them.  The
-    restored pages are private: refcount 1, owned by the slot.
+    restored pages are private: refcount 1, owned by the slot.  On a mesh
+    (``shardings``) the image is whole and each rank scatters its block.
 
     Enqueues work only: the popped ids never leave the device, and every
     write is an index op or a fill of a view, so it can run while a decode
     horizon is in flight."""
     dev = state.device
+    if shardings is not None:
+        k_blk = shardings["k_pages"].local(k_blk)
+        v_blk = shardings["v_pages"].local(v_blk)
     if n_pages:
         src = state.free_top - 1 - torch.arange(n_pages, device=dev)
         pages = state.free_stack.index_select(0, src.long())      # [n]
@@ -384,28 +427,47 @@ def kv_payload_checksum(k: np.ndarray, v: np.ndarray,
     return crc & 0xFFFFFFFF
 
 
-def snapshot_aux(state: PagedServeState, slot: int,
-                 ring_row: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+#: the aux image's arrays, in order, and how many leading dims of each
+#: pool leaf the snapshot indexes away (the slot dim of a recurrent row)
+_AUX_FIELDS = (("k_ring", 0), ("v_ring", 0), ("rg_h", 1), ("rg_conv", 1),
+              ("ssm_state", 1), ("ssm_conv", 1))
+
+
+def snapshot_aux(state: PagedServeState, slot: int, ring_row: torch.Tensor,
+                 shardings: Optional[Dict] = None
+                 ) -> Tuple[torch.Tensor, ...]:
     """Gather ``slot``'s RING frames (through its static ring row,
     [ring_pages] int32 on the device) and RECURRENT rows: (k_ring, v_ring,
     rg_h, rg_conv, ssm_state, ssm_conv), O(window) + O(1) whatever the
-    block's length.  Enqueues gathers only."""
+    block's length.  Enqueues gathers only; on a mesh (``shardings``) an
+    all-gather per sharded array makes each whole on every rank."""
     row = ring_row.long()
-    return (state.k_ring.index_select(1, row),
-            state.v_ring.index_select(1, row),
-            state.rg_h[:, slot], state.rg_conv[:, slot],
-            state.ssm_state[:, slot], state.ssm_conv[:, slot])
+    out = (state.k_ring.index_select(1, row),
+           state.v_ring.index_select(1, row),
+           state.rg_h[:, slot], state.rg_conv[:, slot],
+           state.ssm_state[:, slot], state.ssm_conv[:, slot])
+    if shardings is None:
+        return out
+    return tuple(shardings[name].whole(a, drop)
+                 for a, (name, drop) in zip(out, _AUX_FIELDS))
 
 
 def restore_aux(state: PagedServeState, slot: int, ring_row: torch.Tensor,
                 k_ring_blk: torch.Tensor, v_ring_blk: torch.Tensor,
                 rg_h: torch.Tensor, rg_conv: torch.Tensor,
-                ssm_state: torch.Tensor, ssm_conv: torch.Tensor
-                ) -> PagedServeState:
+                ssm_state: torch.Tensor, ssm_conv: torch.Tensor,
+                shardings: Optional[Dict] = None) -> PagedServeState:
     """Swap-in of :func:`snapshot_aux`'s arrays (device tensors), in
     place: the ring frames into ``slot``'s static ring row, the recurrent
     state into its rows — which may be another slot's than the one they
-    were gathered from.  Index copies and view copies only."""
+    were gathered from.  Index copies and view copies only; on a mesh
+    (``shardings``) the arrays are whole and each rank writes its
+    block."""
+    if shardings is not None:
+        k_ring_blk, v_ring_blk, rg_h, rg_conv, ssm_state, ssm_conv = (
+            shardings[name].local(a, drop) for a, (name, drop) in zip(
+                (k_ring_blk, v_ring_blk, rg_h, rg_conv, ssm_state,
+                 ssm_conv), _AUX_FIELDS))
     row = ring_row.long()
     state.k_ring.index_copy_(1, row, k_ring_blk.to(state.k_ring.dtype))
     state.v_ring.index_copy_(1, row, v_ring_blk.to(state.v_ring.dtype))

@@ -1,0 +1,13 @@
+"""Sharding for serving on a device mesh (counterpart of
+``repro/distributed``): the serve half of the sharding rules and the
+logical activation axes.  The train half, pipeline parallelism, gradient
+compression and expert parallelism are not ported yet (ROADMAP.md § A14a-ii,
+§ A14b)."""
+from .sharding import (ParamBlocks, Sharding, Spec, batch_axes_for,
+                       cache_specs, param_specs, placement_hint,
+                       serve_state_specs, shard_params, shard_serve_state,
+                       shardings_of)
+
+__all__ = ["param_specs", "cache_specs", "serve_state_specs",
+           "shard_serve_state", "shard_params", "batch_axes_for",
+           "placement_hint", "shardings_of", "ParamBlocks", "Sharding", "Spec"]

@@ -1,0 +1,162 @@
+"""Logical activation-sharding axes (counterpart of
+``repro/distributed/axes.py``).
+
+Tokens: 'batch' → the data-parallel axes of the active mesh ('pod',
+'data'); 'model' → the tensor-parallel axis; 'expert' → 'model' when EP
+is active; 'seq' → sequence sharding for long-context decode.  Outside a
+``logical_axes(mesh)`` scope every constraint is a no-op.
+
+The reference's ``constrain`` asks GSPMD for a layout.  The port runs one
+process per mesh device, so a tensor here is either whole on every rank
+or this rank's block of one dim, and :func:`constrain` *gathers* (or, for
+the free direction, slices) ``x`` into the named layout: a named dim whose
+axis divides its whole size ends as this rank's block, every other dim
+ends whole.  Gathers are collectives of the mesh and are counted there.
+Only the ``model`` axis carries blocks on the serve path (a ``data`` axis
+wider than 1 is refused there), so a block is always a ``model`` block.
+
+The tensor-parallel helpers below (:func:`to_whole`, :func:`to_block`,
+:func:`model_sum`) are the step's forms of the same rule, and
+``models/tp.py`` builds the row-parallel product and the vocab-sharded
+lookup on them; under no scope, or on a 1-wide ``model`` axis, each is
+the plain op it replaces.  This module imports nothing of ``models/``.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import math
+from typing import Optional, Sequence
+
+import torch
+
+_AXES: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
+    "logical_axes", default=None)
+
+
+@contextlib.contextmanager
+def logical_axes(mesh, n_experts: int = 0, seq_shard: bool = False):
+    names = set(mesh.axis_names)
+    batch = tuple(a for a in ("pod", "data") if a in names)
+    mapping = {
+        "batch": batch if len(batch) > 1 else (batch[0] if batch else None),
+        "model": "model" if "model" in names else None,
+        "expert": ("model" if ("model" in names and n_experts
+                               and n_experts % mesh.shape["model"] == 0)
+                   else None),
+        "seq": (("data", "model") if seq_shard and "data" in names
+                else ("model" if "model" in names else None)),
+    }
+    tok = _AXES.set({"mesh": mesh, "map": mapping})
+    try:
+        yield
+    finally:
+        _AXES.reset(tok)
+
+
+def model_axis():
+    """(mesh, n, index) of the active ``model`` axis when it is wider than
+    1, else None."""
+    ctx = _AXES.get()
+    if ctx is None:
+        return None
+    mesh = ctx["mesh"]
+    n = mesh.shape["model"]
+    return (mesh, n, mesh.coords["model"]) if n > 1 else None
+
+
+def _gather(x: torch.Tensor, dim: int, whole: int, mesh) -> torch.Tensor:
+    if x.shape[dim] == whole:
+        return x
+    if x.shape[dim] * mesh.shape["model"] != whole:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is neither whole "
+                         f"({whole}) nor a 'model' block of it")
+    return mesh.all_gather(x, dim)
+
+
+def _slice(x: torch.Tensor, dim: int, whole: int, n: int,
+           r: int) -> torch.Tensor:
+    blk = whole // n
+    if x.shape[dim] == blk:
+        return x
+    if x.shape[dim] != whole:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is neither whole "
+                         f"({whole}) nor a block of {blk}")
+    return x.narrow(dim, r * blk, blk)
+
+
+def constrain(x: torch.Tensor, *dims: Optional[str],
+              whole: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Bring ``x`` into the named layout; no-op outside logical_axes().
+
+    ``whole`` is the tensor's whole shape (default ``x.shape``: ``x`` is
+    whole).  A dim named by a logical axis whose mesh axes divide its
+    whole size (the reference's fallback rule) ends as this rank's block;
+    every other dim ends whole, gathered if it was a block."""
+    ctx = _AXES.get()
+    if ctx is None:
+        return x
+    if len(dims) != x.dim():
+        raise ValueError(f"constrain got {len(dims)} names for a "
+                         f"{x.dim()}-d tensor")
+    mesh = ctx["mesh"]
+    whole = tuple(x.shape) if whole is None else tuple(whole)
+    for i, d in enumerate(dims):
+        ax = ctx["map"].get(d) if d else None
+        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        n = math.prod(mesh.shape[a] for a in axes)
+        wide = [a for a in axes if mesh.shape[a] > 1]
+        if wide and whole[i] > 0 and whole[i] % n == 0:
+            if wide != ["model"]:
+                raise NotImplementedError(
+                    f"blocks over {wide}: only the 'model' axis is sharded "
+                    f"on the serve path (ROADMAP.md § A14b)")
+            x = _slice(x, i, whole[i], n, mesh.coords["model"])
+        else:
+            x = _gather(x, i, whole[i], mesh)
+    return x
+
+
+def to_whole(x: torch.Tensor, dim: int, whole: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` (``whole`` long): all-gathered over
+    ``model`` if it is a block, else ``x`` itself."""
+    m = model_axis()
+    if m is None or x.shape[dim] == whole:
+        return x
+    return _gather(x, dim, whole, m[0])
+
+
+def to_whole_last(xs, wholes):
+    """:func:`to_whole` along the last dim of several tensors of the same
+    leading shape, with one all-gather for all the blocks among them (the
+    q/k/v projections of one attention layer)."""
+    m = model_axis()
+    if m is None:
+        return tuple(xs)
+    blk = [x.shape[-1] != w for x, w in zip(xs, wholes)]
+    if sum(blk) < 2:
+        return tuple(to_whole(x, -1, w) for x, w in zip(xs, wholes))
+    mesh, n, _ = m
+    cut = [x for x, b in zip(xs, blk) if b]
+    widths = [x.shape[-1] for x in cut]
+    g = _gather(torch.cat(cut, -1), -1, n * sum(widths), mesh)
+    parts = iter(torch.split(g.reshape(*g.shape[:-1], n, sum(widths)),
+                             widths, -1))
+    return tuple(next(parts).flatten(-2) if b else x
+                 for x, b in zip(xs, blk))
+
+
+def to_block(x: torch.Tensor, dim: int, whole: int) -> torch.Tensor:
+    """This rank's ``model`` block of ``x`` along ``dim`` when ``model``
+    divides ``whole`` (a view, no communication), else ``x`` whole."""
+    m = model_axis()
+    if m is None or whole % m[1]:
+        return x
+    return _slice(x, dim, whole, m[1], m[2])
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ``model`` axis (one all-reduce; ``x`` itself
+    without a mesh)."""
+    m = model_axis()
+    return x if m is None else m[0].all_reduce(x.contiguous())

@@ -19,8 +19,9 @@
 Counterpart of ``repro/launch/serve.py``: the closed-loop batch, the
 open-loop and observability modes (``--traffic``, ``--trace``,
 ``--metrics``), the disaggregated topology (``--disagg``) and the fault
-plane (``--faults``).  The reference's ``--legacy`` (the per-sequence
-path) waits for ROADMAP.md § A15 and ``--mesh-shape`` for § A14.
+plane (``--faults``), and the device mesh (``--mesh-shape``,
+``--kv-layout``).  The reference's ``--legacy`` (the per-sequence path)
+waits for ROADMAP.md § A14a-ii.
 ``serve/engine.py`` is driven by ``serve/scheduler.py`` —
 admission, chunked prefill, the fused decode horizon, eviction and
 preemption — with page lifecycle through
@@ -74,6 +75,25 @@ crossing, ``--fault-seed``; ``--fault-model simdram:node=22`` takes the
 rate from the SIMDRAM reliability model instead) and recovers each
 exactly — bounded retry, exact fallback or an accounted shed; the run
 prints the plan's counts and raises if a fault stays unresolved.
+
+``--mesh-shape DATAxMODEL`` serves on a device mesh (``launch/mesh.py``,
+``PagedEngine(mesh=)``): one process per device, each running this
+launcher (``torchrun --nproc-per-node N``, which sets ``RANK``,
+``WORLD_SIZE`` and the rendezvous; gloo for ``--device cpu``, nccl for
+``cuda``).  The pools shard over ``model`` (``--kv-layout shard``) or stay
+whole on every rank (``replicate``); the page table, allocator and
+scheduler are host-global, the same on every rank.  On a ``model`` axis
+wider than 1 attention takes the plain batched path (``--attn-impl``
+defaults to ``gather`` there; the kernel is refused, as in the
+reference), ``--kv-layout auto`` is refused (§ A15b), MoE stacks are
+refused (§ A14a-ii) and so is a ``data`` axis wider than 1 (§ A14b).  Both
+``--disagg`` engines get the mesh and share one set of weights.  On a
+``model`` axis wider than 1 the weights are drawn on the host and each
+rank copies only its blocks to its device (``shard_params``), so the
+device never holds the whole model; the draws are then the CPU
+generator's, which on ``--device cuda`` differ from a one-card run's.
+Only rank 0 prints and writes ``--trace``; the run prints the mesh, its
+layout and placement, and the collectives each rank made.
 """
 from __future__ import annotations
 
@@ -81,11 +101,14 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config, smoke_config
+from ..distributed.sharding import shard_params
+from ..launch.mesh import init_distributed, make_host_mesh
 from ..models.model import init_params
 from ..serve.disagg import DisaggScheduler
 from ..serve.engine import PagedEngine
@@ -138,11 +161,24 @@ def _parser() -> argparse.ArgumentParser:
                     help="fused decode horizon K: decoding slots advance K "
                          "tokens per engine call with sampling and stopping "
                          "on the device; the host reads one [K, S] block")
-    ap.add_argument("--attn-impl", default="kernel",
+    ap.add_argument("--attn-impl", default=None,
                     choices=("gather", "kernel"),
                     help="'kernel' (default): the hand-written CUDA kernel "
                          "on the card, its plain twin on the CPU; 'gather': "
-                         "the plain batched twin (CPU only)")
+                         "the plain batched twin (CPU only, and the default "
+                         "and only choice on a 'model' axis wider than 1)")
+    ap.add_argument("--mesh-shape", default=None, metavar="DATAxMODEL",
+                    help="serve on a device mesh, e.g. '1x4' = 4-way "
+                         "'model'-axis sharding: one process per device "
+                         "(torchrun --nproc-per-node 4); KV pools, ring "
+                         "frames and recurrent state shard over 'model', "
+                         "the page table, allocator and scheduler stay "
+                         "host-global")
+    ap.add_argument("--kv-layout", default="auto",
+                    choices=("auto", "shard", "replicate"),
+                    help="pool layout on the mesh: 'shard' over 'model' or "
+                         "'replicate' on every rank ('auto' is 'shard' on a "
+                         "1-wide 'model' axis and refused on a wider one)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable cross-request KV page sharing")
     ap.add_argument("--overlap", action="store_true",
@@ -206,21 +242,54 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the serve (closed-loop, or open-loop with ``--traffic``) and
     return ``(finished_requests, engine, scheduler)``."""
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    mesh, device = None, args.device
+    attn_impl = args.attn_impl or "kernel"
+    if args.mesh_shape is not None:
+        try:
+            data, model = (int(x) for x in args.mesh_shape.split("x"))
+        except ValueError:
+            ap.error(f"--mesh-shape must look like '1x4', got "
+                     f"{args.mesh_shape!r}")
+        if model > 1:
+            if args.attn_impl == "kernel":
+                ap.error("--attn-impl kernel is not supported on a 'model' "
+                         "axis wider than 1: the paged-attention kernel "
+                         "assumes a single-device page pool. Use "
+                         "--attn-impl gather, or --mesh-shape 1x1.")
+            attn_impl = "gather"
+        if data * model > 1:
+            # every rank of `torchrun --nproc-per-node N` runs this
+            try:
+                device = init_distributed(args.device)
+            except RuntimeError as e:
+                ap.error(f"--mesh-shape {args.mesh_shape}: {e}")
+            if dist.get_world_size() != data * model:
+                ap.error(f"--mesh-shape {args.mesh_shape} needs "
+                         f"{data * model} processes but "
+                         f"{dist.get_world_size()} were launched: use "
+                         f"torchrun --nproc-per-node {data * model}")
+        mesh = make_host_mesh(data, model, device=str(device))
     cfg = serve_config(args.arch, args.smoke)
-    params = init_params(cfg, seed=args.seed, device=args.device)
+    if mesh is not None and mesh.shape["model"] > 1:
+        # drawn on the host, so the card holds only this rank's blocks
+        params = shard_params(cfg, init_params(cfg, seed=args.seed,
+                                               device="cpu"), mesh, device)
+    else:
+        params = init_params(cfg, seed=args.seed, device=device)
     return serve(cfg, params, requests=args.requests, max_new=args.max_new,
                  batch_slots=args.batch_slots,
                  prefill_chunk=args.prefill_chunk,
                  prompt_len=args.prompt_len,
                  shared_prefix=args.shared_prefix,
                  decode_horizon=args.decode_horizon,
-                 attn_impl=args.attn_impl,
+                 attn_impl=attn_impl,
                  prefix_cache=not args.no_prefix_cache,
                  overlap=args.overlap, host_swap_pages=args.host_swap_pages,
                  n_pages=args.n_pages,
                  max_pages_per_seq=args.max_pages_per_seq, seed=args.seed,
-                 device=args.device, traffic=args.traffic, rate=args.rate,
+                 device=device, traffic=args.traffic, rate=args.rate,
                  slo_ttft=args.slo_ttft, slo_tpot=args.slo_tpot,
                  trace=args.trace, trace_format=args.trace_format,
                  metrics=args.metrics, disagg=args.disagg,
@@ -228,7 +297,8 @@ def main(argv=None):
                  decode_slots=args.decode_slots,
                  faults=args.faults or args.fault_model is not None,
                  fault_rate=args.fault_rate, fault_seed=args.fault_seed,
-                 fault_model=args.fault_model)
+                 fault_model=args.fault_model, mesh=mesh,
+                 kv_layout=args.kv_layout)
 
 
 def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
@@ -244,7 +314,8 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
           metrics: bool = False, disagg: bool = False,
           prefill_slots: int = 6, decode_slots: int = 3,
           faults: bool = False, fault_rate: float = 0.05,
-          fault_seed: int = 7, fault_model: Optional[str] = None):
+          fault_seed: int = 7, fault_model: Optional[str] = None,
+          mesh=None, kv_layout: str = "auto"):
     """The launcher's serve on given params (on ``device``): ``requests``
     prompts of ``shared_prefix`` system tokens (drawn first, shared by
     all) and ``prompt_len`` tokens of their own, drawn from ``seed``, each
@@ -259,10 +330,13 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     ``disagg`` serves on a prefill engine (``prefill_slots``) and a decode
     engine (``decode_slots``, ``n_pages``, the host tier) sharing
     ``params``; ``faults`` installs a seeded fault plan (``fault_rate``
-    or ``fault_model``, ``fault_seed``) on every allocator.  Returns
-    ``(finished_requests, engine, scheduler)``: under ``disagg`` the
-    decode engine and the ``DisaggScheduler`` (its ``prefill.engine`` is
-    the prefill engine)."""
+    or ``fault_model``, ``fault_seed``) on every allocator.  ``mesh`` and
+    ``kv_layout`` serve on a device mesh (every engine; only rank 0 prints
+    and writes the trace).  Returns ``(finished_requests, engine,
+    scheduler)``: under ``disagg`` the decode engine and the
+    ``DisaggScheduler`` (its ``prefill.engine`` is the prefill engine)."""
+    rank0 = mesh is None or mesh.rank == 0
+    echo: Callable = print if rank0 else (lambda *a, **k: None)
     rng = np.random.default_rng(seed)
     system = rng.integers(0, cfg.vocab, shared_prefix).tolist()
     prompts = [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
@@ -274,22 +348,28 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     engine = PagedEngine(
         cfg, params, page_size=page_size, max_seqs=slots,
         n_pages=n_pages, max_pages_per_seq=max_pages_per_seq,
-        attn_impl=attn_impl, host_swap_pages=host_swap_pages, device=device)
+        attn_impl=attn_impl, host_swap_pages=host_swap_pages, device=device,
+        mesh=mesh, kv_layout=kv_layout)
     p_eng = None
     if disagg:
         # a prompt-sized pool on many slots, on the same weights
         p_eng = PagedEngine(
             cfg, params, page_size=page_size, max_seqs=prefill_slots,
             n_pages=1 + prefill_slots * (8 + shared_prefix // page_size),
-            attn_impl=attn_impl, device=device)
+            attn_impl=attn_impl, device=device, mesh=mesh,
+            kv_layout=kv_layout)
     geom = engine.geom
-    print(f"[serve] {cfg.name} on {engine.device} — attn_impl={attn_impl}; "
+    echo(f"[serve] {cfg.name} on {engine.device} — attn_impl={attn_impl}; "
           f"geometry: n_full {geom.n_full}, n_ring {geom.n_ring}, n_rg "
           f"{geom.n_rg}, n_ssm {geom.n_ssm}, window {geom.window}, ring "
           f"pages {geom.ring_pages} of {page_size} tokens")
+    if mesh is not None:
+        echo(f"[serve] mesh {dict(mesh.shape)}: kv_layout="
+             f"{engine.kv_layout}, placement={engine.placement}")
+        mesh.reset_collectives()
     cache = PrefixCache(page_size=page_size) if prefix_cache else None
     if cache is not None and not engine.supports_prefix_sharing:
-        print("[serve] prefix cache disabled: RING/RECURRENT layers are "
+        echo("[serve] prefix cache disabled: RING/RECURRENT layers are "
               "ineligible for cross-request page sharing")
         cache = None
     telem = (Telemetry(trace=trace is not None)
@@ -297,11 +377,11 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     plan = None
     if faults:
         plan = plan_from_args(fault_rate, fault_seed, model=fault_model)
-        print(f"[serve] chaos mode: fault rates "
+        echo(f"[serve] chaos mode: fault rates "
               f"{ {k: f'{v:g}' for k, v in plan.rates.items()} } "
               f"seed={fault_seed}")
     if disagg:
-        print(f"[serve] disagg topology: prefill {prefill_slots} slots/"
+        echo(f"[serve] disagg topology: prefill {prefill_slots} slots/"
               f"{p_eng.n_pages} pages -> decode {decode_slots} slots/"
               f"{engine.n_pages} pages (BlockImage handoff)")
         sched = DisaggScheduler(p_eng, engine, prefill_chunk=prefill_chunk,
@@ -315,30 +395,30 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     t0 = time.perf_counter()
     if traffic is not None:
         finished = _run_traffic(cfg, sched, traffic, requests, rate, seed,
-                                slo_ttft, slo_tpot, overlap)
+                                slo_ttft, slo_tpot, overlap, echo)
     else:
         for p in prompts:
             sched.add_request(p, max_new=max_new)
         finished = sched.run()
     dt = time.perf_counter() - t0
     for req in finished:
-        print(f"[serve] req {req.rid} done: {req.prompt[-4:]} -> "
+        echo(f"[serve] req {req.rid} done: {req.prompt[-4:]} -> "
               f"{req.out[:8]}...")
     n_out = sum(len(r.out) for r in finished)
     if p_eng is not None:
-        print(f"[serve] prefill engine stats {p_eng.stats} allocator stats "
+        echo(f"[serve] prefill engine stats {p_eng.stats} allocator stats "
               f"{p_eng.alloc.stats}")
-        print(f"[serve] disagg stats {dict(sched.stats)} — prefill sched "
+        echo(f"[serve] disagg stats {dict(sched.stats)} — prefill sched "
               f"{dict(sched.prefill.stats)} / decode sched "
               f"{dict(sched.decode.stats)}")
-    print(f"[serve] engine stats {engine.stats} allocator stats "
+    echo(f"[serve] engine stats {engine.stats} allocator stats "
           f"{engine.alloc.stats} sched stats {sched.stats}")
     if cache is not None:
-        print(f"[serve] prefix cache: hit_rate={cache.hit_rate:.2f} "
+        echo(f"[serve] prefix cache: hit_rate={cache.hit_rate:.2f} "
               f"stats {cache.stats}")
     if engine.alloc.swap is not None:
         a = engine.alloc.stats
-        print(f"[serve] host swap tier: {engine.alloc.swap.capacity_pages} "
+        echo(f"[serve] host swap tier: {engine.alloc.swap.capacity_pages} "
               f"pages; preemptions {sched.stats['preemptions']}, swap-outs "
               f"{a['swap_outs']} ({a['swapped_out_pages']} pages, "
               f"{a['swap_bytes_out']} B), swap-ins {a['swap_ins']} "
@@ -346,20 +426,23 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
               f"rejects {a['swap_rejects']}; prefill tokens "
               f"{sched.stats['prefill_tokens']}")
     if plan is not None:
-        print(f"[serve] fault plan: {plan.stats}")
+        echo(f"[serve] fault plan: {plan.stats}")
         if plan.stats["unresolved"]:
             raise RuntimeError(f"the chaos run left {plan.stats['unresolved']}"
                                f" injected fault(s) unresolved")
     if telem is not None:
-        _emit_telemetry(telem, trace, trace_format, metrics)
-    print(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
+        _emit_telemetry(telem, trace, trace_format, metrics, rank0)
+    if mesh is not None:
+        echo(f"[serve] mesh collectives (rank 0, this run): "
+             f"{mesh.collectives}")
+    echo(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
           f"{dt:.3f}s on {engine.device} ({n_out / dt:.1f} tok/s)")
     return finished, engine, sched
 
 
 def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
                  seed: int, slo_ttft: float, slo_tpot: float,
-                 overlap: bool):
+                 overlap: bool, echo: Callable = print):
     """Open-loop serving on the wall clock: requests arrive whether or not
     the engine has capacity, and the user-visible numbers are latency
     percentiles and goodput under the SLO.  Returns the finished
@@ -369,7 +452,7 @@ def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
     mix = {}
     for tr in trace:
         mix[tr.profile] = mix.get(tr.profile, 0) + 1
-    print(f"[serve] open-loop {process} traffic: {requests} requests @ "
+    echo(f"[serve] open-loop {process} traffic: {requests} requests @ "
           f"{rate:g} req/s, mix {mix}, overlap "
           f"{'on' if overlap else 'off'}")
     # wall clock; the latency histograms join the scheduler's registry
@@ -377,11 +460,11 @@ def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
                         accountant=LatencyAccountant(sched.metrics))
     finished = drv.run()
     s = drv.acct.summary(slo_ttft=slo_ttft, slo_tpot=slo_tpot)
-    print(f"[serve] ttft p50={s['ttft_p50'] * 1e3:.1f}ms "
+    echo(f"[serve] ttft p50={s['ttft_p50'] * 1e3:.1f}ms "
           f"p99={s['ttft_p99'] * 1e3:.1f}ms | "
           f"tpot p50={s['tpot_p50'] * 1e3:.1f}ms "
           f"p99={s['tpot_p99'] * 1e3:.1f}ms")
-    print(f"[serve] throughput={s['throughput_req_s']:.2f}req/s "
+    echo(f"[serve] throughput={s['throughput_req_s']:.2f}req/s "
           f"({s['throughput_tok_s']:.1f}tok/s) "
           f"slo_attainment={s['slo_attainment']:.2f} "
           f"goodput={s['goodput_req_s']:.2f}req/s")
@@ -389,22 +472,25 @@ def _run_traffic(cfg, sched, process: str, requests: int, rate: float,
 
 
 def _emit_telemetry(telem, trace: Optional[str], trace_format: str,
-                    metrics: bool) -> None:
+                    metrics: bool, rank0: bool = True) -> None:
     """Write the recorded trace (JSONL or Chrome ``trace_event``), check
     it against the allocator's conservation invariants, and print the
-    metrics snapshot when asked."""
+    metrics snapshot when asked.  On a mesh only rank 0 writes and
+    prints; every rank checks its trace."""
+    echo: Callable = print if rank0 else (lambda *a, **k: None)
     if telem.tracer is not None:
         rec = telem.tracer
-        if trace_format == "chrome":
-            rec.write_chrome(trace)
-        else:
-            rec.write_jsonl(trace)
+        if rank0:
+            if trace_format == "chrome":
+                rec.write_chrome(trace)
+            else:
+                rec.write_jsonl(trace)
         summary = check_trace(rec.events)
-        print(f"[serve] trace: {len(rec.events)} events -> {trace} "
+        echo(f"[serve] trace: {len(rec.events)} events -> {trace} "
               f"({trace_format}); checker OK — {summary}")
     if metrics:
-        print("[serve] metrics snapshot:")
-        print(json.dumps(telem.metrics.snapshot(), indent=2, sort_keys=True))
+        echo("[serve] metrics snapshot:")
+        echo(json.dumps(telem.metrics.snapshot(), indent=2, sort_keys=True))
 
 
 if __name__ == "__main__":

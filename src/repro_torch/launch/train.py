@@ -13,7 +13,7 @@ published config.  The step runs at the config's own dtypes (float32
 params, bfloat16 compute) with ``grad_accum`` 1, as in the reference.
 Resume is automatic if ``--ckpt-dir`` holds a checkpoint (the reference's
 on-disk format, so either package resumes the other's).  Only the host
-mesh exists here: ``--mesh pod``/``multipod`` wait for ROADMAP.md § A14.
+mesh exists here: ``--mesh pod``/``multipod`` wait for ROADMAP.md § A14b.
 Batches reach the device through pinned buffers (``device.stage``), so a
 step waits on nothing but the loss the loop reads.
 """
@@ -62,8 +62,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mesh != "host":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: device meshes are not ported yet "
-            f"(ROADMAP.md § A14)")
+            f"--mesh {args.mesh}: training on a device mesh is not ported "
+            f"yet (ROADMAP.md § A14b)")
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, grad_accum=1)

@@ -5,8 +5,9 @@ Counterpart of ``repro/models/layers.py``.  All attention flows through
 :func:`attention`, which dispatches between a direct path (small S) and a
 memory-bounded chunked online-softmax path, so activation memory stays
 O(S·chunk) instead of O(S²).  The MoE runs the reference's local grouped
-path; its expert-parallel mesh path waits for the port's mesh (ROADMAP.md
-§ A14).
+path; its expert-parallel mesh path waits for ROADMAP.md § A14a-ii (the
+serve engine refuses MoE stacks on a mesh until then).  :func:`mlp` takes
+its local-shard form on a device mesh (``distributed/axes.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .quantized import promoted, qmm
+from .tp import row_parallel
 
 #: additive mask constant of the dense attention paths; the paged paths
 #: (serve/engine.py, kernels/paged_attention) use -1e30 instead
@@ -167,10 +169,13 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0,
 # --------------------------------------------------------------------------
 # channel mixers
 # --------------------------------------------------------------------------
-def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(params, x: torch.Tensor, act: str, d_ff: int) -> torch.Tensor:
     """MLP with dense or quantized weights (``quantized.qmm``): ``swiglu``
     (w1, w3, w2), ``sq_relu`` (nemotron) or ``gelu`` with the tanh
-    approximation (whisper)."""
+    approximation (whisper); ``d_ff`` is the whole hidden width.  Under a
+    mesh's ``logical_axes`` w1/w3 may be column blocks, so the hidden is
+    this rank's block, and the row block of w2 ends in one all-reduce
+    (``models/tp.py``); elsewhere the plain products."""
     if act == "swiglu":
         h = F.silu(qmm(x, params["w1"])) * qmm(x, params["w3"])
     elif act == "sq_relu":
@@ -179,7 +184,7 @@ def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(qmm(x, params["w1"]), approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return qmm(h, params["w2"])
+    return row_parallel(h, params["w2"], d_ff)
 
 
 def _moe_groups(T: int, want: int = 32) -> int:

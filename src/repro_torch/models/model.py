@@ -409,7 +409,7 @@ def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
         if spec.moe:
             x = x + moe(p["moe"], h2, cfg)
         else:
-            x = x + mlp(p["mlp"], h2, cfg.act)
+            x = x + mlp(p["mlp"], h2, cfg.act, cfg.d_ff)
     return x.to(_cdt(cfg)), new_cache
 
 
@@ -540,7 +540,7 @@ def _run_encoder(cfg: ModelConfig, params,
         o = attention(q, k, v, causal=False, window=0)
         x = x + matmul(o.transpose(1, 2).reshape(B, S, -1), p["attn"]["wo"])
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = (x + mlp(p["mlp"], h2, "gelu")).to(cdt)
+        x = (x + mlp(p["mlp"], h2, "gelu", cfg.d_ff)).to(cdt)
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 

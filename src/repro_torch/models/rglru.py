@@ -16,6 +16,13 @@ Block structure (Griffin temporal block): linear in (2 branches), causal
 conv(``conv_width``) on the recurrent branch, RG-LRU, gated output
 projection.  Products compute in their operands' promoted dtype, as
 the reference's ``@`` does (``quantized.matmul``).
+
+On a device mesh (inside ``distributed.axes.logical_axes``) the decode
+step takes its local-shard form: ``in_x``/``in_gate``/``w_a``/``w_i`` are
+column blocks and ``out`` a row block over ``model``, so each rank
+updates its block of the width; the gates' dense ``[w, w]`` products take
+the whole conv output (one all-gather), and ``out`` ends in one
+all-reduce.
 """
 from __future__ import annotations
 
@@ -24,7 +31,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..distributed.axes import to_block, to_whole
 from .quantized import matmul
+from .tp import row_parallel
 
 RGLRU_C = 8.0
 
@@ -59,10 +68,15 @@ def _conv(x: torch.Tensor, conv_w: torch.Tensor, conv_state=None):
     return out, pad[:, -(w - 1):]
 
 
-def _gates(params, xb: torch.Tensor):
-    r = torch.sigmoid(matmul(xb, params["w_a"])).float()
-    i = torch.sigmoid(matmul(xb, params["w_i"])).float()
-    log_a = -RGLRU_C * F.softplus(params["lambda_p"]) * r
+def _gates(params, xb: torch.Tensor, width: int):
+    """(a, gated) of the conv output ``xb`` of the whole ``width``.  On a
+    mesh ``xb`` may be a block of it: the products take it whole and the
+    gates come out as the block of ``w_a``/``w_i``'s columns."""
+    xw = to_whole(xb, -1, width)
+    r = torch.sigmoid(matmul(xw, params["w_a"])).float()
+    i = torch.sigmoid(matmul(xw, params["w_i"])).float()
+    lam = to_block(params["lambda_p"], -1, width)
+    log_a = -RGLRU_C * F.softplus(lam) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) \
         * (i * xb.float())
@@ -88,7 +102,7 @@ def rglru_forward(params, x: torch.Tensor, cfg):
     xb = matmul(x, params["in_x"])
     gate = matmul(x, params["in_gate"])
     xb, conv_state = _conv(xb, params["conv_w"])
-    a, b = _gates(params, xb)                          # [B, S, w] f32
+    a, b = _gates(params, xb, cfg.rnn_width or cfg.d_model)  # [B, S, w]
     h = linear_scan(a, b)
     y = h * F.gelu(gate.float(), approximate="tanh")
     return matmul(y.to(x.dtype), params["out"]), h[:, -1], conv_state
@@ -96,11 +110,19 @@ def rglru_forward(params, x: torch.Tensor, cfg):
 
 def rglru_decode_step(params, x: torch.Tensor, h: torch.Tensor,
                       conv_state: torch.Tensor, cfg):
-    """x [B, 1, d]; h [B, w] → (y [B, 1, d], h', conv_state')."""
-    xb = matmul(x, params["in_x"])
+    """x [B, 1, d]; h [B, w] → (y [B, 1, d], h', conv_state').  On a
+    mesh ``h`` and ``conv_state`` are this rank's width block (a sharded
+    pool) or whole (a replicated one), and come back the same way."""
+    w = cfg.rnn_width or cfg.d_model
+    xb = matmul(x, params["in_x"])                     # a block when cut
     gate = matmul(x, params["in_gate"])
-    xb, conv_state = _conv(xb, params["conv_w"], conv_state)
-    a, b = _gates(params, xb)                          # [B, 1, w]
-    h = a[:, 0] * h + b[:, 0]
-    y = h[:, None] * F.gelu(gate.float(), approximate="tanh")
-    return matmul(y.to(x.dtype), params["out"]), h, conv_state
+    h_in = to_block(h, -1, w)                          # the block's rows
+    xb, conv_new = _conv(xb, params["conv_w"], to_block(conv_state, -1, w))
+    a, b = _gates(params, xb, w)                       # [B, 1, w block]
+    h_new = a[:, 0] * h_in + b[:, 0]
+    y = h_new[:, None] * F.gelu(gate.float(), approximate="tanh")
+    out = row_parallel(y.to(x.dtype), params["out"], w)
+    if h.shape[-1] == w:                  # a whole (replicated) state
+        h_new = to_whole(h_new, -1, w)
+        conv_new = to_whole(conv_new, -1, w)
+    return out, h_new, conv_new

@@ -11,6 +11,15 @@ group (G=1); state size N.  As in the reference, the causal conv is 4
 wide whatever ``cfg.conv_width`` says, so the decode conv state holds 3
 rows.  Products compute in their operands' promoted dtype, as the
 reference's ``@`` does (``quantized.matmul``).
+
+On a device mesh (inside ``distributed.axes.logical_axes``) the decode
+step takes its local-shard form.  A column block of ``in_proj`` cuts
+across its ``z | xBC | dt`` segments, so the projection is all-gathered
+whole; the conv runs on ``conv_w``'s channel block and is gathered back;
+the recurrence runs on the state's heads (a block in a sharded pool, all
+of them in a replicated one); the gated norm spans all of ``d_inner``, so
+``y`` is gathered before it, and ``out_proj``'s row block ends in one
+all-reduce.
 """
 from __future__ import annotations
 
@@ -19,7 +28,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.axes import to_block, to_whole
 from .quantized import matmul
+from .tp import row_parallel
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int]:
@@ -134,24 +145,44 @@ def mamba_forward(params, x: torch.Tensor, cfg):
 def mamba_decode_step(params, x: torch.Tensor, state: torch.Tensor,
                       conv_state: torch.Tensor, cfg):
     """x [B, 1, d]; state [B, H, P, N]; conv_state [B, 3, conv_ch] →
-    (y [B, 1, d], state', conv_state')."""
+    (y [B, 1, d], state', conv_state').  On a mesh ``state`` is this
+    rank's block of heads and ``conv_state`` of channels (a sharded pool)
+    or whole (a replicated one), and come back the same way."""
     Bsz = x.shape[0]
     d_inner, H, P = ssm_dims(cfg)
     N = cfg.ssm_state
-    proj = matmul(x, params["in_proj"])
+    conv_ch = d_inner + 2 * N
+    n_proj = 2 * d_inner + 2 * N + H
+    proj = to_whole(matmul(x, params["in_proj"]), -1, n_proj)
     z, xBC, dt_raw = _split_proj(cfg, proj)
-    xBC, conv_state = _conv(xBC, params["conv_w"], conv_state)
+    conv_w = params["conv_w"]
+    cs_new = None
+    if conv_w.shape[-1] != conv_ch:               # a channel block
+        if conv_state.shape[-1] == conv_ch:       # of a whole state
+            cs_new = torch.cat([conv_state, xBC],
+                               dim=1)[:, -(conv_w.shape[0] - 1):]
+        xBC, cs = _conv(to_block(xBC, -1, conv_ch), conv_w,
+                        to_block(conv_state, -1, conv_ch))
+        xBC = to_whole(xBC, -1, conv_ch)
+    else:
+        xBC, cs = _conv(xBC, conv_w, conv_state)
+    conv_state = cs if cs_new is None else cs_new
     xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])   # [B,H]
     A = -torch.exp(params["A_log"])
+    D = params["D"]
     xh = xs[:, 0].reshape(Bsz, H, P).float()
+    if state.shape[1] != H:                       # a block of heads
+        dt, A, D = (to_block(t, -1, H) for t in (dt, A, D))
+        xh = to_block(xh, 1, H)
     Bv = B[:, 0].float()                                    # [B,N]
     Cv = C[:, 0].float()
     decay = torch.exp(dt * A)                               # [B,H]
     state = state * decay[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhpn", dt, Bv, xh)
     y = torch.einsum("bn,bhpn->bhp", Cv, state) \
-        + params["D"][None, :, None] * xh
-    y = y.reshape(Bsz, 1, d_inner)
+        + D[None, :, None] * xh
+    y = to_whole(y.reshape(Bsz, 1, -1), -1, d_inner)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
-    return matmul(y, params["out_proj"]).to(x.dtype), state, conv_state
+    return (row_parallel(y, params["out_proj"], d_inner).to(x.dtype), state,
+            conv_state)

@@ -38,13 +38,44 @@ plain batched twin (:func:`batched_paged_attention`); a CUDA engine
 refuses it, because on the card the main path goes through the kernel.
 Both take (page row, valid length), so the ring pool rides the same two
 paths with its static rows and ``min(seq_len, window)``.
+
+``PagedEngine(mesh=, kv_layout=)`` serves on a ``data x model`` device
+mesh (``launch/mesh.py``; DESIGN.md §13) as an SPMD program: one process
+per device, each running this engine and the scheduler over its shard.
+Params are cut by ``distributed/sharding.py::param_specs`` and the pools
+by ``serve_state_specs`` (``kv_layout="shard"``; ``"replicate"`` keeps
+them whole on every rank); the page table, allocator and scheduler stay
+host-global, the same on every rank.  The token step is then
+tensor-parallel, every collective explicit and counted on the mesh:
+
+  * column blocks (``wq``/``wk``/``wv``, ``w1``/``w3``, ``in_*``,
+    ``w_a``/``w_i``) give ``model`` blocks of activations, and a row block
+    (``wo``, ``w2``, ``out``, ``out_proj``) ends in one all-reduce;
+  * the embedding is vocab-sharded: a masked local lookup and one
+    all-reduce; the logits are all-gathered over the vocab, so every rank
+    samples from the same bits and takes the same host branch;
+  * attention follows the pool: a pool cut by kv head attends locally on
+    the rank's heads (its q heads are their GQA groups); a pool cut by
+    ``head_dim`` takes q/k/v whole, writes its slice, all-reduces the
+    partial q·k scores and all-gathers p·v's slices
+    (:func:`batched_paged_attention`); a replicated pool is written whole
+    and attended whole on every rank;
+  * RG-LRU and Mamba-2 take their local-shard forms
+    (``models/rglru.py``, ``models/ssm.py``).
+
+A ``1 x 1`` mesh runs the same ops as ``mesh=None`` and no collective.
+Refused, each naming the ROADMAP.md item that lifts it: the kernel on a
+``model`` axis wider than 1 (as in the reference), MoE stacks on a mesh
+(§ A14a-ii), a ``data`` axis wider than 1 (§ A14b), ``kv_layout="auto"``
+on a ``model`` axis wider than 1 (§ A15b).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from contextlib import nullcontext
 from functools import partial
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -56,12 +87,16 @@ from ..core.vbi.kvcache import (PagedServeState, aux_swap_charge,
                                 write_token_kv)
 from ..core.vbi.mtl import MTL
 from ..device import resolve_device
+from ..distributed.axes import logical_axes, model_sum, to_block, to_whole
+from ..distributed.sharding import (ParamBlocks, Sharding, shard_params,
+                                    shard_serve_state)
 from ..kernels.paged_attention import paged_attention
 from ..models.config import LayerSpec, ModelConfig
 from ..models.layers import mlp, moe, rms_norm
 from ..models.model import _layer_params, _logits
 from ..models.rglru import rglru_decode_step
 from ..models.ssm import mamba_decode_step, ssm_dims
+from ..models.tp import row_parallel, vocab_embed
 from .paged import _qkv_ragged
 from .telemetry import StatsView
 
@@ -184,20 +219,30 @@ def batched_paged_attention(q: torch.Tensor, k_pages_l: torch.Tensor,
     q [S, n_kv, g, hd] (pre-scaled f32); k/v_pages_l [n_pages, ps, n_kv,
     hd]; page_table [S, max_pages_per_seq]; seq_lens [S] → [S, n_kv, g,
     hd].  The ring pool uses the same contract with its static page rows
-    and ``seq_lens`` clipped to the window."""
+    and ``seq_lens`` clipped to the window.  On a mesh a pool may hold
+    this rank's ``model`` block of ``hd`` (q is whole): each rank then
+    scores its slice, one all-reduce sums the partial q·k scores (the
+    softmax is the same on every rank) and p·v's slices are gathered
+    whole."""
+    hd = q.shape[-1]
+    hd_cut = k_pages_l.shape[-1] != hd
+    qs = to_block(q, -1, hd) if hd_cut else q
     pts = page_table[:, :max_pages].long()                # [S, P]
     S, P = pts.shape
     ps = k_pages_l.shape[1]
     k = k_pages_l[pts].reshape(S, P * ps, *k_pages_l.shape[2:])
     v = v_pages_l[pts].reshape(S, P * ps, *v_pages_l.shape[2:])
-    s = torch.einsum("shgd,sphd->shgp", q, k.to(q.dtype))
+    s = torch.einsum("shgd,sphd->shgp", qs, k.to(q.dtype))
+    if hd_cut:
+        s = model_sum(s)
     mask = (torch.arange(P * ps, device=q.device)[None]
             < seq_lens[:, None])[:, None, None, :]
     s = torch.where(mask, s, -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(mask, p, 0.0)
     out = torch.einsum("shgp,sphd->shgd", p, v.to(q.dtype))
-    return out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return to_whole(out, -1, hd)
 
 
 def _kernel_paged_attention(q, k_pages_l, v_pages_l, page_table, seq_lens,
@@ -220,16 +265,20 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
     reserve → per layer by its kind (paged or ring KV scatter + paged
     attention, or a recurrent update on the masked slots; then the MLP or
     MoE) → logits.  Updates ``state`` in place; reads nothing back to the
-    host."""
+    host.  Under a mesh's ``logical_axes`` the step is tensor-parallel
+    (module doc); the shapes of the pools say how a mesh cut them (dim 3:
+    kv heads, dim 4: head_dim)."""
     state, positions = reserve_positions(state, slot_mask,
                                          has_full=geom.has_full)
-    x = params["embed"][tokens].float()[:, None, :]              # [S,1,d]
+    x = vocab_embed(params["embed"], tokens,
+                    cfg.vocab).float()[:, None, :]              # [S,1,d]
     attn_fn = (_kernel_paged_attention if attn_impl == "kernel"
                else batched_paged_attention)
     S = tokens.shape[0]
     if geom.n_full or geom.n_ring:
         g = cfg.n_heads // cfg.n_kv
         scale = 1.0 / math.sqrt(cfg.head_dim)
+        n_q = cfg.n_heads * cfg.head_dim
     if geom.n_ring:
         # seq_lens already counts this token: the window is the last
         # ``window`` tokens including it
@@ -242,26 +291,30 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
                 li = plan.entry_indices[i][j]
                 h = rms_norm(x, lp["ln1"], cfg.norm_eps)
                 if kind in ("full", "ring"):
-                    q, k, v = _qkv_ragged(cfg, lp["attn"], h, positions)
-                    qg = (q[:, :, 0].float() * scale).reshape(
-                        S, cfg.n_kv, g, cfg.head_dim).contiguous()
                     if kind == "full":
-                        write_token_kv(state.k_pages, state.v_pages, li,
-                                       state.page_table, positions,
-                                       slot_mask, k[:, :, 0], v[:, :, 0])
-                        o = attn_fn(qg, state.k_pages[li],
-                                    state.v_pages[li], state.page_table,
-                                    state.seq_lens, max_pages)
+                        kp, vp, table = (state.k_pages, state.v_pages,
+                                         state.page_table)
+                        pos, lens, width = positions, state.seq_lens, \
+                            max_pages
                     else:
                         # bounded liveness: translation pos mod window
                         # into the slot's static ring row, frames reused
-                        write_token_kv(state.k_ring, state.v_ring, li,
-                                       ring_table, ring_pos, slot_mask,
-                                       k[:, :, 0], v[:, :, 0])
-                        o = attn_fn(qg, state.k_ring[li], state.v_ring[li],
-                                    ring_table, ring_lens, geom.ring_pages)
-                    x = x + (o.reshape(S, 1, -1).to(x.dtype)
-                             @ lp["attn"]["wo"])
+                        kp, vp, table = state.k_ring, state.v_ring, \
+                            ring_table
+                        pos, lens, width = ring_pos, ring_lens, \
+                            geom.ring_pages
+                    q, k, v = _qkv_ragged(cfg, lp["attn"], h, positions,
+                                          heads_local=kp.shape[3] != cfg.n_kv)
+                    qg = (q[:, :, 0].float() * scale).reshape(
+                        S, k.shape[1], g, cfg.head_dim).contiguous()
+                    kt, vt = k[:, :, 0], v[:, :, 0]
+                    if kp.shape[-1] != cfg.head_dim:  # a head_dim block
+                        kt = to_block(kt, -1, cfg.head_dim)
+                        vt = to_block(vt, -1, cfg.head_dim)
+                    write_token_kv(kp, vp, li, table, pos, slot_mask, kt, vt)
+                    o = attn_fn(qg, kp[li], vp[li], table, lens, width)
+                    x = x + row_parallel(o.reshape(S, 1, -1).to(x.dtype),
+                                         lp["attn"]["wo"], n_q)
                 elif kind == "rglru":
                     o, hh, cv = rglru_decode_step(
                         lp["rglru"], h, state.rg_h[li], state.rg_conv[li],
@@ -279,8 +332,8 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
                 if kind != "mamba":                      # channel mixer
                     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
                     x = x + (moe(lp["moe"], h2, cfg) if plan.specs[i].moe
-                             else mlp(lp["mlp"], h2, cfg.act))
-    return _logits(cfg, params, x), state
+                             else mlp(lp["mlp"], h2, cfg.act, cfg.d_ff))
+    return to_whole(_logits(cfg, params, x), -1, cfg.vocab), state
 
 
 def _update_rows(dst: torch.Tensor, new: torch.Tensor,
@@ -289,6 +342,57 @@ def _update_rows(dst: torch.Tensor, new: torch.Tensor,
     read (a select over all slots, not a boolean-mask index)."""
     mask = slot_mask.reshape((-1,) + (1,) * (dst.dim() - 1))
     dst.copy_(torch.where(mask, new.to(dst.dtype), dst))
+
+
+def _check_mesh(cfg: ModelConfig, params, mesh, dev: torch.device,
+                attn_impl: str, kv_layout: str) -> str:
+    """The mesh refusals, each naming the ROADMAP.md item that lifts it;
+    returns the pool layout (``auto`` resolves to ``shard`` on a 1-wide
+    ``model`` axis, where both layouts are the same)."""
+    n_model = mesh.shape["model"]
+    if n_model > 1 and attn_impl == "kernel":
+        raise ValueError(
+            "attn_impl='kernel' is not sharding-aware: the paged-attention "
+            "kernel assumes a single-device page pool. Use "
+            "attn_impl='gather' on a mesh whose 'model' axis is wider "
+            "than 1 (or a 1x1 mesh)")
+    if mesh.shape["data"] > 1:
+        raise NotImplementedError(
+            f"a 'data' axis of {mesh.shape['data']} in serving is not "
+            f"ported: the data/FSDP axis comes with ROADMAP.md § A14b")
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE stacks on a device mesh dispatch expert-"
+            f"parallel in the reference (moe_ep), which is not ported: "
+            f"ROADMAP.md § A14a-ii")
+    if kv_layout == "auto":
+        if n_model > 1:
+            raise NotImplementedError(
+                "kv_layout='auto' picks a layout by reading the compiled "
+                "step's collectives in the reference (hlo_cost), which is "
+                "not ported (ROADMAP.md § A15b): pass kv_layout='shard' or "
+                "'replicate'")
+        kv_layout = "shard"
+    if n_model > 1:
+        if mesh.device_type != dev.type:
+            raise ValueError(f"the mesh's processes hold {mesh.device_type} "
+                             f"devices, the engine runs on {dev}")
+        if _has_q8(params):
+            raise NotImplementedError(
+                "int8 (q8) weights on a 'model' axis wider than 1: the "
+                "activation's per-row int8 scale spans the whole "
+                "contraction, which a row block cannot see "
+                "(ROADMAP.md § A14a-ii)")
+    return kv_layout
+
+
+def _has_q8(tree) -> bool:
+    """Whether a params tree holds an int8 ``{'q8', 's'}`` leaf."""
+    if isinstance(tree, dict):
+        return "q8" in tree or any(_has_q8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_q8(v) for v in tree)
+    return False
 
 
 # --------------------------------------------------------------------------
@@ -303,30 +407,51 @@ class PagedEngine:
     ``self.alloc`` (:class:`~repro_torch.core.vbi.blocks.VBIAllocator`);
     policy lives in ``serve/scheduler.py``.  ``params`` must already live
     on ``device``; ``host_swap_pages > 0`` gives the allocator a host swap
-    tier of that many pages."""
+    tier of that many pages.  ``mesh`` (a ``launch/mesh.py::Mesh``) and
+    ``kv_layout`` serve on a device mesh (module doc): on a ``model`` axis
+    wider than 1, ``params`` is either this rank's blocks
+    (``distributed/sharding.py::shard_params`` on this mesh, as the
+    launcher gives it) or the whole tree on the host or on ``device``, of
+    which only this rank's blocks are copied to ``device``.
+    ``self.params`` holds the blocks, ``self.shardings`` each pool leaf's
+    :class:`Sharding` and ``self.placement`` one device name per mesh
+    device."""
 
     def __init__(self, cfg: ModelConfig, params, n_pages: int = 256,
                  page_size: int = 16, max_seqs: int = 8,
                  max_pages_per_seq: Optional[int] = None,
                  attn_impl: str = "kernel", mtl: Optional[MTL] = None,
                  host_swap_pages: int = 0, eos_id: int = -1,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 mesh=None, kv_layout: str = "auto"):
         if attn_impl not in ("gather", "kernel"):
             raise ValueError(f"attn_impl must be 'gather' or 'kernel', got "
                              f"{attn_impl!r}")
+        if kv_layout not in ("auto", "shard", "replicate"):
+            raise ValueError(f"kv_layout must be 'auto', 'shard' or "
+                             f"'replicate', got {kv_layout!r}")
         dev = resolve_device(device)
-        if dev.type == "cuda" and attn_impl == "gather":
+        n_model = 1 if mesh is None else mesh.shape["model"]
+        if mesh is not None:
+            kv_layout = _check_mesh(cfg, params, mesh, dev, attn_impl,
+                                    kv_layout)
+        if dev.type == "cuda" and attn_impl == "gather" and n_model == 1:
             raise ValueError(
                 "attn_impl='gather' is the plain twin of the paged-attention "
                 "kernel; on a CUDA engine attention runs through the kernel "
-                "(attn_impl='kernel')")
+                "(attn_impl='kernel'), except on a mesh whose 'model' axis "
+                "is wider than 1, where the kernel is refused")
+        if n_model > 1:
+            if not isinstance(params, ParamBlocks):
+                params = shard_params(cfg, params, mesh, dev)
+            elif params.mesh is not mesh:
+                raise ValueError("params were cut for another mesh")
         if params["embed"].device != dev:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {dev}")
         geom = build_stack_geom(cfg, page_size)
         self.cfg = cfg
         self.geom = geom
-        self.params = params
         self.device = dev
         self.attn_impl = attn_impl
         self.page_size = page_size
@@ -344,22 +469,38 @@ class PagedEngine:
         if geom.n_ssm:
             d_inner, ssm_H, ssm_P = ssm_dims(cfg)
             ssm_conv_ch = d_inner + 2 * cfg.ssm_state
-        self.state = init_serve_state(
+        pool = dict(
             n_layers=geom.n_full, n_pages=n_pages, page_size=page_size,
             n_kv=cfg.n_kv, head_dim=cfg.head_dim, max_seqs=max_seqs,
             max_pages_per_seq=self.max_pages, dtype=torch.float32,
             n_ring_layers=geom.n_ring, ring_pages=geom.ring_pages,
             n_rg=geom.n_rg, rnn_width=rnn_w, conv_width=cfg.conv_width,
             n_ssm=geom.n_ssm, ssm_heads=ssm_H, ssm_proj=ssm_P,
-            ssm_state_size=cfg.ssm_state, ssm_conv_ch=ssm_conv_ch,
-            device=dev)
+            ssm_state_size=cfg.ssm_state, ssm_conv_ch=ssm_conv_ch)
+        # on a mesh the pools are cut by serve_state_specs (each rank
+        # allocates only its blocks); translation stays replicated
+        self.mesh = mesh
+        self.kv_layout = kv_layout if mesh is not None else None
+        self.params = params
+        self.shardings: Optional[Dict[str, Sharding]] = None
+        if mesh is None:
+            self.state = init_serve_state(**pool, device=dev)
+        else:
+            self.state, self.shardings = shard_serve_state(
+                mesh, kv_layout, dev, **pool)
         # a slot's ring frames are static (kvcache.py::make_ring_table):
         # translation is arithmetic; page 0 stays null for masked lanes.
         # Contiguous int32 on the device, once (the kernel reads its rows)
         self.ring_table = torch.from_numpy(
             make_ring_table(max_seqs, geom.ring_pages)).to(dev).contiguous()
-        # placement is a data property of every block carved from this pool
-        self.placement = (f"{dev.type}:{dev.index or 0}",)
+        # placement is a data property of every block carved from this
+        # pool: the devices its pages live on, one name per mesh device
+        # (the same tuple on every rank)
+        self.placement = ((f"{dev.type}:{dev.index or 0}",) if mesh is None
+                          else tuple(f"{dev.type}:{r}"
+                                     for r in range(mesh.size)))
+        self._axes = (nullcontext if mesh is None
+                      else partial(logical_axes, mesh, cfg.n_experts))
         # the engine satisfies the allocator's pool protocol (.state + geom)
         self.alloc = VBIAllocator(self, host_swap_pages=host_swap_pages,
                                   mtl=mtl)
@@ -411,8 +552,9 @@ class PagedEngine:
         # the step writes the pool, page table and free stack of
         # self.state in place, where the reference donates the state to
         # its jitted step and gets a new one back
-        logits, self.state = self._step(self.params, self.state, tokens,
-                                        slot_mask)
+        with self._axes():
+            logits, self.state = self._step(self.params, self.state, tokens,
+                                            slot_mask)
         self.stats["decode_steps"] += 1
         self.stats["decode_dispatches"] += 1
         self.stats["token_steps"] += 1
@@ -427,9 +569,10 @@ class PagedEngine:
         device (-1 on masked lanes).  The page budget for the worst-case
         span must be reserved through ``self.alloc`` before the call."""
         # K steps update self.state in place (the reference donates it)
-        block, self.state = fused_decode_scan(
-            partial(self._step, self.params), self.state, tokens, slot_mask,
-            steps_left, length=k, eos_id=self.eos_id)
+        with self._axes():
+            block, self.state = fused_decode_scan(
+                partial(self._step, self.params), self.state, tokens,
+                slot_mask, steps_left, length=k, eos_id=self.eos_id)
         self.stats["decode_steps"] += k
         self.stats["decode_dispatches"] += 1
         self.stats["token_steps"] += k
@@ -463,11 +606,12 @@ class PagedEngine:
         finished its prompt this chunk)."""
         C = tokens.shape[1]
         picks = []      # each column's step updates self.state in place
-        for c in range(C):
-            mask = (c < n_tokens) & self.state.slot_active
-            logits, self.state = self._step(self.params, self.state,
-                                            tokens[:, c], mask)
-            picks.append(torch.argmax(logits[:, 0], -1).to(torch.int32))
+        with self._axes():
+            for c in range(C):
+                mask = (c < n_tokens) & self.state.slot_active
+                logits, self.state = self._step(self.params, self.state,
+                                                tokens[:, c], mask)
+                picks.append(torch.argmax(logits[:, 0], -1).to(torch.int32))
         last = torch.clamp(n_tokens - 1, min=0).long()
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         self.stats["prefill_chunks"] += 1

@@ -76,7 +76,12 @@ runs on a machine without JAX:
     whisper's encoder) runs under ``set_sync_debug_mode("error")``, its
     batch staged through pinned memory; whisper-small's prefill and two
     decode steps on the card give the CPU's logits (1e-4) and the CPU's
-    greedy tokens.
+    greedy tokens;
+  * serving on a device mesh: the engine on a 1x1 mesh with the kernel
+    serves qwen3, gemma3, recurrentgemma and mamba2 smoke with the
+    unmeshed engine's tokens and kernel launches, no collective, and a
+    horizon free of host syncs; a 1x2 mesh on two cards over nccl gives the
+    unmeshed tokens (skipped on a machine with one card).
 """
 import numpy as np
 import pytest
@@ -96,6 +101,7 @@ from repro_torch.core.vbi.blocks import PagePool, VBIAllocator
 from repro_torch.core.vbi.kvcache import make_ring_table
 from repro_torch.kernels.simdram_vm import ops as vm
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import serve_config
 from repro_torch.models import model as tm
 from repro_torch.models.model import init_params
@@ -1199,3 +1205,74 @@ def test_whisper_prefill_decode_on_card_matches_cpu(dev):
         got, gc = tm.decode_step(cfg, _to(params, dev), gc, nxt.to(dev), pos)
         torch.testing.assert_close(got.cpu(), want, **TOL_LOGITS)
         nxt = want[:, 0].argmax(-1)[:, None]
+
+
+# -- serving on a device mesh --------------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-12b",
+                                  "recurrentgemma-9b", "mamba2-1.3b"])
+def test_mesh_1x1_on_card_equals_unmeshed(dev, arch):
+    """The 1x1 mesh runs the same ops as no mesh: the same tokens and
+    kernel launches, no collective, and a horizon free of host syncs."""
+    cfg = serve_config(arch)
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 5).tolist() for _ in range(3)]
+    mesh = make_host_mesh(1, 1, device="cuda")
+    outs, launches = {}, {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        eng = PagedEngine(cfg, params, n_pages=33, page_size=8, max_seqs=2,
+                          max_pages_per_seq=8, device=dev, mesh=m,
+                          kv_layout="shard")
+        sched = Scheduler(eng, prefill_chunk=4, decode_horizon=8)
+        for p in prompts:
+            sched.add_request(p, max_new=12)
+        before = paged_attention.launches
+        outs[name] = {r.rid: r.out for r in sched.run()}
+        launches[name] = paged_attention.launches - before
+    assert outs["mesh"] == outs["plain"]
+    assert launches["mesh"] == launches["plain"]
+    assert all(c["calls"] == 0 for c in mesh.collectives.values())
+    for s in range(2):
+        eng.alloc.reserve_span(eng.alloc.alloc(s), 4, 8)
+    eng.prefill_chunk(torch.tensor([[3, 1, 4, 1], [5, 9, 2, 6]],
+                                   dtype=torch.int32, device=dev),
+                      torch.full((2,), 4, dtype=torch.int32, device=dev))
+    toks = torch.tensor([7, 8], dtype=torch.int32, device=dev)
+    mask = torch.ones(2, dtype=torch.bool, device=dev)
+    steps = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        block = eng.decode_many(toks, mask, steps, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool((block.cpu() >= 0).all())
+    assert all(c["calls"] == 0 for c in mesh.collectives.values())
+
+
+def test_mesh_1x2_nccl_equals_unmeshed(dev, tmp_path):
+    """Two ranks, one card each, on an nccl group: the qwen3 smoke serve
+    on a 1x2 mesh (``kv_layout`` shard) gives the unmeshed tokens."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("a 1x2 mesh over nccl needs two cards; one H100 cannot "
+                    "run it")
+    import multiprocessing as mp
+
+    import _torch_mesh_worker as W
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.run_nccl,
+                         args=(r, 2, str(tmp_path / "rdzv"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0], \
+        [(tmp_path / f"rank{r}.err").read_text() for r in range(2)
+         if (tmp_path / f"rank{r}.err").exists()]
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    assert res[0]["mesh"] == res[0]["plain"] == res[1]["mesh"]

@@ -118,5 +118,5 @@ def test_mlp(act):
     ref = jl.mlp({k: jnp.asarray(w) for k, w in p.items()}, jnp.asarray(x),
                  act)
     got = tl.mlp({k: torch.from_numpy(w) for k, w in p.items()},
-                 torch.from_numpy(x), act)
+                 torch.from_numpy(x), act, 32)
     _close(got, ref)

@@ -1,0 +1,390 @@
+"""Serving on a device mesh in the port (``PagedEngine(mesh=, kv_layout=)``,
+``launch/mesh.py``, ``distributed/``) against the reference's greedy
+tokens and the port's unmeshed engine.
+
+The 1x2 and 1x4 meshes run as the port runs them: one process per mesh
+device on a gloo group.  The module spawns one group per world size
+(``_torch_mesh_worker.run``), each running every case in its ranks, and
+the tests read what the ranks wrote.  The params are the port's seeded
+``init_params``; the parent hands the same numbers to the reference (in
+``jax.tree`` leaf order, ``repro_torch/tree.py``) and computes its greedy
+tokens (``_torch_parity.jax_greedy``) while the ranks run; the ranks
+never load JAX.  The ranks meet through a file rendezvous (no TCP port
+to collide between test workers), every collective waits at most 60 s,
+and the parent kills ranks still alive after ``JOIN_S`` and fails their
+tests.
+
+  * tokens equal the reference's greedy decode for qwen3-0.6b, gemma3-12b
+    (ring pool), recurrentgemma-9b and mamba2-1.3b, under ``kv_layout``
+    shard and replicate and horizons 1 and 8, and every rank returns the
+    same tokens, stats and trace;
+  * one decode step's logits are within ``LOGIT_TOL`` of the unmeshed
+    engine's (a row block's partial products and their all-reduce sum in
+    another order than one product);
+  * each pool leaf is held as its local shard: the whole shape divided by
+    the mesh on the dim ``serve_state_specs`` names;
+  * preemption and host swap on the 1x4 sharded pool equal the roomy run;
+    a block image through the sharded pool is the unmeshed pool's, bytes
+    and CRC; blocks carry the mesh's placement and ``VBProps.SHARDED``;
+  * the refusals (the kernel on a wide ``model`` axis, MoE on a mesh,
+    ``data`` > 1, ``kv_layout='auto'`` on a wide ``model`` axis) and the
+    launcher (``--mesh-shape 1x2 --kv-layout shard``, with and without
+    ``--disagg``) in 2 ranks;
+  * in this process: a 1x1 mesh is bit-equal to ``mesh=None`` for all
+    four stacks, with zero collectives.
+"""
+import multiprocessing as mp
+import time
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_mesh_worker as W
+from _torch_parity import jax_greedy, one_torch_thread  # noqa: F401
+from repro.launch.serve import serve_config as ref_serve_config
+from repro.models import model as jm
+from repro_torch import tree
+from repro_torch.core.vbi.address_space import VBProps
+from repro_torch.distributed.sharding import serve_state_specs
+from repro_torch.launch import serve as tserve
+from repro_torch.distributed.sharding import ParamBlocks
+from repro_torch.launch.mesh import (Mesh, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.models.model import init_params
+
+WORLDS = (2, 4)
+#: the ranks' time limit (each world's whole run of cases)
+JOIN_S = 240
+#: one decode step's logits, meshed vs unmeshed, and a prompt's KV and
+#: recurrent state (readings at most 2.15e-6 over every case; about 5x)
+LOGIT_TOL = 1e-5
+
+
+def _port(arch):
+    """(port cfg, port params on the CPU) for ``arch``'s serve config."""
+    cfg = tserve.serve_config(arch)
+    return cfg, init_params(cfg, seed=0, device="cpu")
+
+
+def _reference_params(arch, tp):
+    """The port's params as the reference's params tree: the same numbers,
+    leaf for leaf in ``jax.tree`` order."""
+    cfg = ref_serve_config(arch)
+    shape = jax.eval_shape(lambda: jm.init_params(cfg, jax.random.key(0)))
+    leaves = [jnp.asarray(t.numpy()) for t in tree.leaves(tp)]
+    want = jax.tree.leaves(shape)
+    assert [x.shape for x in leaves] == [x.shape for x in want]
+    return cfg, jax.tree.unflatten(jax.tree.structure(shape), leaves)
+
+
+def _prompts(arch, vocab, n=2):
+    """The reference's prompts (tests/test_mesh_serve.py), seeded by a
+    stable hash of the arch (its ``hash(arch)`` changes per process)."""
+    rng = np.random.default_rng(zlib.crc32(arch.encode()))
+    return [rng.integers(0, vocab, 5).tolist() for _ in range(n)]
+
+
+@pytest.fixture(scope="module")
+def spawned(tmp_path_factory):
+    """Spawn the 1x2 and 1x4 groups, compute the reference's tokens while
+    they run, and gather each rank's results: ``(reference, {world:
+    [rank results] or the error})``."""
+    root = tmp_path_factory.mktemp("mesh")
+    inputs = {}
+    for arch in W.ARCHS:
+        cfg, tp = _port(arch)
+        inputs[arch] = {"cfg": cfg, "params": tp,
+                        "prompts": _prompts(arch, cfg.vocab)}
+    torch.save(inputs, root / "inputs.pt")
+    ctx = mp.get_context("spawn")
+    procs = {}
+    for world in WORLDS:
+        d = root / f"w{world}"
+        d.mkdir()
+        procs[world] = [ctx.Process(
+            target=W.run, args=(r, world, str(d / "rdzv"),
+                                str(root / "inputs.pt"), str(d)),
+            daemon=True) for r in range(world)]
+        for p in procs[world]:
+            p.start()
+    ref = {}
+    for arch in W.ARCHS:
+        cfg, jp = _reference_params(arch, inputs[arch]["params"])
+        ref[arch] = {i: jax_greedy(cfg, jp, p, W.MAX_NEW)
+                     for i, p in enumerate(inputs[arch]["prompts"])}
+    deadline = time.monotonic() + JOIN_S
+    results = {}
+    for world, ps in procs.items():
+        for p in ps:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(ps) if p.is_alive()]
+        for p in ps:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        d = root / f"w{world}"
+        errs = [f"rank {r}:\n{(d / f'rank{r}.err').read_text()}"
+                for r in range(world) if (d / f"rank{r}.err").exists()]
+        if hung or errs or any(p.exitcode for p in ps):
+            results[world] = (f"{world} ranks: hung {hung} (killed after "
+                              f"{JOIN_S} s), exit codes "
+                              f"{[p.exitcode for p in ps]}\n"
+                              + "\n".join(errs))
+        else:
+            results[world] = [torch.load(d / f"rank{r}.pt",
+                                         weights_only=False)
+                              for r in range(world)]
+    return ref, results
+
+
+def _ranks(spawned, world):
+    res = spawned[1][world]
+    if isinstance(res, str):
+        pytest.fail(res)
+    return res
+
+
+@pytest.mark.parametrize("k", W.HORIZONS)
+@pytest.mark.parametrize("layout", W.LAYOUTS)
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_tokens_match_reference(spawned, world, arch, layout, k):
+    ranks = _ranks(spawned, world)
+    runs = [r["tokens"][(arch, layout, k)] for r in ranks]
+    assert runs[0]["out"] == spawned[0][arch], \
+        f"1x{world} {arch} {layout} K={k}: tokens differ from the reference"
+    for r, run in enumerate(runs[1:], 1):
+        for key in ("out", "stats", "engine_stats", "free", "trace",
+                    "placement"):
+            assert run[key] == runs[0][key], f"rank {r} {key} differs"
+    run = runs[0]
+    assert run["free"][0] == run["free"][1]
+    assert run["kv_layout"] == layout
+    assert run["placement"] == tuple(f"cpu:{r}" for r in range(world))
+    calls = {kind: c["calls"] for kind, c in run["collectives"].items()}
+    assert calls["all_reduce"] > 0 and calls["all_gather"] > 0, calls
+    if k == 8:
+        assert run["trace"], "the traced run recorded no event"
+
+
+@pytest.mark.parametrize("layout", W.LAYOUTS)
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_logits_match_unmeshed_engine(spawned, world, arch, layout):
+    ranks = _ranks(spawned, world)
+    got = [r["logits"][(arch, layout)] for r in ranks]
+    assert got[0]["err"] <= LOGIT_TOL, \
+        f"1x{world} {arch} {layout}: logits off by {got[0]['err']:.3e}"
+    assert got[0]["first"] == got[0]["plain_first"]
+    for g in got[1:]:
+        assert torch.equal(g["logits"], got[0]["logits"]), \
+            "ranks sample from different logits"
+
+
+@pytest.mark.parametrize("layout", W.LAYOUTS)
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_pool_leaves_are_local_shards(spawned, world, arch, layout):
+    for rank in _ranks(spawned, world):
+        sh = rank["shapes"][(arch, layout)]
+        n_cut = 0
+        for name, spec in sh["specs"].items():
+            whole, local = sh["whole"][name], sh["local"][name]
+            want = list(whole)
+            if "model" in spec:
+                d = spec.index("model")
+                want[d] = whole[d] // world
+                n_cut += 1
+            assert tuple(want) == local, f"{name}: {local} vs {whole}"
+        # every stack has a pool the shard layout cuts
+        assert (n_cut > 0) == (layout == "shard")
+
+
+@pytest.mark.parametrize("layout", W.LAYOUTS)
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_block_image_equals_unmeshed(spawned, world, arch, layout):
+    """The unmeshed pool's image of a block (a prompt and one decoded
+    token), imported into the sharded pool and exported again, is the
+    same bytes and CRC; the sharded pool's own image of that block is the
+    same on every rank and within the logit tolerance of the unmeshed
+    one."""
+    ranks = _ranks(spawned, world)
+    imgs = [r["images"][(arch, layout)] for r in ranks]
+    plain, back = imgs[0]["plain"], imgs[0]["round_trip"]
+    assert back["checksum"] == plain["checksum"]
+    for key in ("k", "v"):
+        assert back[key].tobytes() == plain[key].tobytes()
+    assert (back["aux"] is None) == (plain["aux"] is None)
+    for a, b in zip(back["aux"] or (), plain["aux"] or ()):
+        assert a.tobytes() == b.tobytes()
+    own = imgs[0]["own"]
+    for other in imgs[1:]:
+        assert other["own"]["checksum"] == own["checksum"]
+        assert other["round_trip"]["checksum"] == plain["checksum"]
+    for a, b in zip([own["k"], own["v"], *(own["aux"] or ())],
+                    [plain["k"], plain["v"], *(plain["aux"] or ())]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=LOGIT_TOL)
+
+
+def test_mesh_preemption_and_swap_exactness(spawned):
+    """tests/test_mesh_serve.py:128-149 on the 1x4 sharded pool: discard
+    and host-swap resume equal the roomy run (the swap image gathers the
+    pages across the mesh and scatters them back)."""
+    for rank in _ranks(spawned, 4):
+        p = rank["pressure"]
+        assert p["preemptions"] >= 1 and p["swap_ins"] >= 1
+        assert p["discard"] == p["roomy"] and p["swapped"] == p["roomy"]
+        assert p["tier_used"] == 0
+        assert p["free"] == (7, 7)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_placement_is_a_block_property(spawned, world):
+    for rank in _ranks(spawned, world):
+        p = rank["placement"]
+        assert p["block"] == p["engine"] and len(p["block"]) == world
+        assert p["sharded"]
+
+
+@pytest.mark.parametrize("case,exc,item", [
+    ("kernel", "ValueError", "kernel"),
+    ("moe", "NotImplementedError", "A14a-ii"),
+    ("data", "NotImplementedError", "A14b"),
+    ("auto", "NotImplementedError", "A15b")])
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_refusals(spawned, world, case, exc, item):
+    for rank in _ranks(spawned, world):
+        got = rank["refusals"][case]
+        assert got[0] == exc and item in got[1], got
+
+
+@pytest.mark.parametrize("topology", ("unified", "disagg"))
+def test_mesh_launcher_matches_unmeshed(spawned, topology):
+    """``main(['--mesh-shape', '1x2', '--kv-layout', 'shard', ...])`` in 2
+    ranks gives the unmeshed launcher's tokens on every rank."""
+    for rank in _ranks(spawned, 2):
+        run = rank["launcher"][topology]
+        assert run["mesh"] == run["plain"] and len(run["mesh"]) == 4
+        # the launcher cuts the weights once, on the host: every engine
+        # holds the same blocks, fewer bytes than the whole tree
+        assert run["blocks"] and run["one_tree"]
+        assert run["param_bytes"] < run["whole_bytes"]
+        assert run["kv_layout"] == "shard"
+        assert run["placement"] == ("cpu:0", "cpu:1")
+        assert run["collectives"]["all_reduce"]["calls"] > 0
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_helpers_broadcast_and_constrain(spawned, world):
+    """``Mesh.broadcast`` from axis index 0, and ``constrain`` gathering a
+    block whole and slicing it back, each collective counted."""
+    for rank in _ranks(spawned, world):
+        h = rank["helpers"]
+        assert h["broadcast"] == [0.0, 0.0, 0.0]
+        assert h["whole"] == list(map(float, range(4 * world)))
+        assert h["back"]
+        c = h["collectives"]
+        assert (c["broadcast"]["calls"], c["all_gather"]["calls"],
+                c["all_reduce"]["calls"]) == (1, 1, 0)
+        assert c["broadcast"]["bytes"] == 12 and \
+            c["all_gather"]["bytes"] == 16
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_ranks_never_load_jax(spawned, world):
+    assert not any(r["jax_loaded"] for r in _ranks(spawned, world))
+
+
+# --------------------------------------------------------------------------
+# in this process: the 1x1 mesh, and the mesh's own refusals
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_mesh_1x1_bit_equal_unmeshed(arch):
+    cfg, tp = _port(arch)
+    prompts = _prompts(arch, cfg.vocab)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    for k in W.HORIZONS:
+        plain, _ = W._serve(W._engine(cfg, tp), prompts, W.MAX_NEW, k)
+        eng = W._engine(cfg, tp, mesh, "auto")
+        meshed, _ = W._serve(eng, prompts, W.MAX_NEW, k)
+        assert meshed == plain
+        assert eng.kv_layout == "shard" and eng.placement == ("cpu:0",)
+    a, _, img_a = W._step_logits(W._engine(cfg, tp), prompts)
+    b, _, img_b = W._step_logits(W._engine(cfg, tp, mesh, "replicate"),
+                                 prompts)
+    assert torch.equal(a, b) and img_a.checksum == img_b.checksum
+    assert all(c["calls"] == 0 and c["bytes"] == 0
+               for c in mesh.collectives.values())
+    specs = serve_state_specs(eng.state, mesh, "shard")
+    assert all("model" not in s for s in specs.values())
+    blk = eng.alloc.alloc(0)
+    assert blk.placement == ("cpu:0",) and not blk.props & VBProps.SHARDED
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+def test_mesh_engine_holds_only_its_blocks(arch):
+    """Given the whole params on the host, an engine on a 1x2 mesh (ranks
+    built without a process group: building an engine makes no
+    collective) keeps only its blocks: each leaf cut over ``model`` is
+    half the whole leaf's bytes in storage of its own, so nothing of the
+    whole tree stays alive through the engine; every other leaf is the
+    whole one."""
+    cfg, tp = _port(arch)
+    whole = tree.leaves(tp)
+    n_cut = 0
+    for r in range(2):
+        eng = W._engine(cfg, tp, Mesh(1, 2, "cpu", rank=r), "shard")
+        assert isinstance(eng.params, ParamBlocks)
+        for w, b in zip(whole, tree.leaves(eng.params), strict=True):
+            if b.shape == w.shape:
+                assert b is w
+                continue
+            n_cut += 1
+            assert b.nbytes * 2 == w.nbytes and b.is_contiguous()
+            assert b.untyped_storage().nbytes() == b.nbytes
+        held = sum(t.nbytes for t in tree.leaves(eng.params))
+        assert held < sum(t.nbytes for t in whole)
+    assert n_cut > 0
+
+
+def test_constrain_outside_a_scope_and_on_one_device():
+    """No scope, or a 1-wide ``model`` axis: ``constrain`` and the
+    tensor-parallel helpers return their input and count nothing."""
+    from repro_torch.distributed import axes
+    x = torch.arange(6.0).reshape(2, 3)
+    assert axes.constrain(x, None, "model") is x
+    mesh = make_host_mesh(1, 1, device="cpu")
+    with axes.logical_axes(mesh):
+        assert axes.constrain(x, "batch", "model") is x
+        assert axes.to_whole(x, -1, 3) is x and axes.to_block(x, -1, 3) is x
+        assert axes.model_sum(x) is x
+        with pytest.raises(ValueError, match="names"):
+            axes.constrain(x, "model")
+    assert all(c["calls"] == 0 for c in mesh.collectives.values())
+
+
+def test_launcher_mesh_needs_its_processes(monkeypatch, capsys):
+    """``--mesh-shape 1x2`` outside ``torchrun`` (no process group, no
+    ``WORLD_SIZE``) and ``--attn-impl kernel`` on it are usage errors."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for extra in ([], ["--attn-impl", "kernel"]):
+        with pytest.raises(SystemExit) as e:
+            tserve.main(["--device", "cpu", "--mesh-shape", "1x2"] + extra)
+        assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "torchrun --nproc-per-node" in err and "kernel" in err
+
+
+def test_host_mesh_needs_its_processes():
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        make_host_mesh(1, 2)
+    with pytest.raises(NotImplementedError, match="A14b"):
+        make_production_mesh()
+    cfg, params = _port("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="A14a-ii"):
+        W._engine(cfg, params, make_host_mesh(1, 1, device="cpu"))
