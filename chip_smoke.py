@@ -133,7 +133,14 @@ Phases (any failure exits non-zero and prints no result line):
               kernel engine on ``make_host_mesh(1, 1)``): tokens equal to
               phase 4's, launches 28 x token steps, no collective; one
               horizon under ``set_sync_debug_mode("error")``; a horizon's
-              host ms beside phase 4's.  It runs after 4g, before 11;
+              host ms beside phase 4's.  It runs after 4g, before 4i;
+ 4i. legacy — phase 4's requests through the launcher's per-sequence path
+              (``--legacy``: ``serve/paged.py::PagedServer``, attention
+              through ``paged_decode_attention`` on the kernel): tokens
+              equal to phase 4's, launches exactly 28 x decode calls;
+              then the host ms per decode call over 4 slots (the path
+              reads each sequence's length from the device per token, by
+              design) and the call count.  It runs before 11;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -200,6 +207,13 @@ Phases (any failure exits non-zero and prints no result line):
               against the plain decode), and for recurrentgemma-9b and
               mamba2-1.3b a request swapped out of slot 0 mid-decode and
               into slot 1, its tokens against the uninterrupted decode.
+              Mixtral's weights again on a 1x1 device mesh (the kernel
+              engine on ``make_host_mesh(1, 1)``, its MoE through
+              ``distributed/moe_ep.py``): tokens equal to the unmeshed
+              serve's (held to the plain decode), moe_ep reached once per
+              MoE layer per token step, no collective, launches 2 x token
+              steps, a sync-free horizon, a decode step's logits beside
+              the unmeshed engine's, and horizons of both in turns.
               Each model is freed before the next loads.  The phase runs
               last, in a child process (``chip_smoke.py --hetero OUT``):
               before phase 7 it left the profiler losing launches of the
@@ -786,6 +800,58 @@ def phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms):
           f"mesh, plain) x 4 on the same params: plain {turns['plain']}, "
           f"mesh {turns['mesh']}; medians {med['plain']:.3f} and "
           f"{med['mesh']:.3f}, mesh / plain {med['mesh'] / med['plain']:.4f}")
+    return launches
+
+
+# -- phase 4i: the legacy per-sequence path ---------------------------------
+LEGACY_ARGV = SERVE_ARGV + ["--legacy"]
+
+
+def phase_legacy(torch, pa, card, serve_outs):
+    """Phase 4's requests through ``--legacy`` (``PagedServer``, attention
+    through ``paged_decode_attention`` on the kernel): the same tokens as
+    phase 4, exactly (layers) x (decode calls) kernel launches; then the
+    host ms of decode calls over 4 slots on the same server.  Returns the
+    launches."""
+    from repro_torch.launch import serve
+    pa.launches = 0
+    t0 = time.perf_counter()
+    finished, srv, _ = serve.main(LEGACY_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, calls = pa.launches, srv.decode_calls
+    n_layers = srv.cfg.n_layers
+    if calls == 0 or launches != n_layers * calls:
+        _fail(f"[legacy] kernel launches {launches} != {n_layers} layers x "
+              f"{calls} decode calls")
+    outs = {r.rid: r.out for r in finished}
+    if outs != serve_outs:
+        _fail(f"[legacy] tokens {outs} differ from phase 4's {serve_outs}")
+    print(f"[legacy] {srv.cfg.name}: tokens of all {len(outs)} requests "
+          f"equal phase 4's; kernel launches {launches} = {n_layers} layers "
+          f"x {calls} decode calls; {wall:.3f} s wall (params init "
+          f"included); VBI stats {srv.kv.stats}")
+    # steady state: 4 sequences admitted, 4 prompt tokens each fed, then
+    # 16 more calls timed one by one on the host clock
+    slots = list(range(srv.kv.max_seqs))
+    for s in slots:
+        srv.admit(s)
+    toks = torch.arange(1, len(slots) + 1, dtype=torch.int32)[:, None]
+    for _ in range(4):
+        srv.decode(toks, slots)
+    ms = []
+    for _ in range(16):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        srv.decode(toks, slots)
+        torch.cuda.synchronize()
+        ms.append(round((time.perf_counter() - t1) * 1e3, 3))
+    for s in slots:
+        srv.evict(s)
+    print(f"[legacy] {card}: {srv.cfg.name}: host ms per decode call over "
+          f"{len(slots)} slots (16 calls at 5-20 tokens): median "
+          f"{statistics.median(ms):.3f}, min {min(ms):.3f}, max "
+          f"{max(ms):.3f}; the serve made {calls} decode calls")
     return launches
 
 
@@ -2646,6 +2712,98 @@ def phase_swap_across_slots(torch, pa, card, cfg, params):
     return launches
 
 
+#: a decode step's logits, 1x1 mesh vs unmeshed engine, over the largest
+#: magnitude: the MoE's expert products take other shapes (one dispatch
+#: group against one per token), so float32 sums round in another order
+MOE_MESH_REL = 1e-4
+
+
+def _decode_logits(torch, eng):
+    """One 4-token prefill and one decode step on every slot of ``eng``:
+    the step's logits [slots, vocab].  Frees the slots it took."""
+    S, dev = eng.max_seqs, eng.device
+    for s in range(S):
+        eng.alloc.reserve_span(eng.alloc.alloc(s), 4, 1)
+    prompt = (torch.arange(1, 5, dtype=torch.int32, device=dev)
+              + torch.arange(S, dtype=torch.int32, device=dev)[:, None])
+    first = eng.prefill_chunk(prompt, torch.full((S,), 4, dtype=torch.int32,
+                                                 device=dev))
+    logits = eng.decode(first, torch.ones(S, dtype=torch.bool,
+                                          device=dev))[:, 0]
+    for blk in list(eng.alloc.blocks.values()):
+        eng.alloc.free(blk)
+    return logits
+
+
+def phase_moe_mesh(torch, pa, card, cfg, params, plain_outs):
+    """Mixtral (full width, 2 layers) on a 1x1 device mesh: the kernel
+    engine through ``serve.serve(mesh=make_host_mesh(1, 1))``, its MoE
+    through ``moe_ep`` (counted by a wrapper around the module's
+    function, which ``models/layers.py::moe`` looks up at each call).
+    Tokens equal the unmeshed serve's, moe_ep calls = MoE layers x token
+    steps, no collective, launches 2 x token steps (phase_serve), a
+    sync-free horizon, one decode step's logits within ``MOE_MESH_REL`` of
+    the unmeshed engine's, and horizons of both engines in turns.  Returns
+    the serve's launches."""
+    from repro_torch.distributed import moe_ep as ep_mod
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.engine import PagedEngine
+
+    dev = params["embed"].device
+    mesh = make_host_mesh(1, 1, device="cuda")
+    real, n_ep = ep_mod.moe_ep, [0]
+
+    def counted(*args):
+        n_ep[0] += 1
+        return real(*args)
+    box = {}
+
+    def run():
+        box["out"] = serve.serve(cfg, params, device=dev, mesh=mesh,
+                                 kv_layout="shard")
+        return box["out"]
+    ep_mod.moe_ep = counted
+    try:
+        launches, engine = phase_serve(torch, pa, card, run, "hetero",
+                                       reference=False)
+    finally:
+        ep_mod.moe_ep = real
+    outs = {r.rid: r.out for r in box.pop("out")[0]}
+    steps = engine.stats["token_steps"]
+    if outs != plain_outs:
+        _fail(f"[hetero] {cfg.name} 1x1 mesh tokens {outs} differ from the "
+              f"unmeshed serve's {plain_outs}")
+    if n_ep[0] != cfg.n_layers * steps:
+        _fail(f"[hetero] {cfg.name} 1x1 mesh: moe_ep called {n_ep[0]} times"
+              f", want {cfg.n_layers} MoE layers x {steps} token steps")
+    bumped = engine.cfg.capacity_factor
+    phase_sync_free(torch, engine, card)
+    plain = PagedEngine(cfg, params, page_size=engine.page_size,
+                        max_seqs=engine.max_seqs, n_pages=engine.n_pages,
+                        attn_impl="kernel", device=dev)
+    a, b = _decode_logits(torch, plain), _decode_logits(torch, engine)
+    err = float((a - b).abs().max() / a.abs().max())
+    if not err <= MOE_MESH_REL:
+        _fail(f"[hetero] {cfg.name} 1x1 mesh: decode logits off the "
+              f"unmeshed engine's by {err:.3e} of the largest")
+    turns = _horizon_turns(torch, {"plain": plain, "mesh": engine})
+    if any(c["calls"] or c["bytes"] for c in mesh.collectives.values()):
+        _fail(f"[hetero] a 1x1 mesh made collectives: {mesh.collectives}")
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"[hetero] {card}: {cfg.name} on a 1x1 mesh (capacity_factor "
+          f"{cfg.capacity_factor} -> {bumped}): tokens of all 6 requests "
+          f"equal the unmeshed serve's; moe_ep {n_ep[0]} calls = "
+          f"{cfg.n_layers} x {steps} token steps; {launches} kernel "
+          f"launches; no collective; decode logits off the unmeshed "
+          f"engine's by {err:.3e} of the largest (bound {MOE_MESH_REL})")
+    print(f"[hetero] {card}: {cfg.name} decode_many(K=8) host ms in turns "
+          f"(plain, mesh, mesh, plain) x 4: plain {turns['plain']}, mesh "
+          f"{turns['mesh']}; medians {med['plain']:.3f} and "
+          f"{med['mesh']:.3f}, mesh / plain {med['mesh'] / med['plain']:.4f}")
+    return launches
+
+
 def _free(torch):
     """Give a dropped model's device memory back before the next loads: an
     engine and its allocator refer to each other, so only the cycle
@@ -2744,9 +2902,14 @@ def phase_hetero(torch, F, pa, ops, batched, dev, card):
             cfg = dataclasses.replace(serve.serve_config(arch, smoke=False),
                                       n_layers=2)
             params = tm.init_params(cfg, seed=0, device=dev)
-            launches[arch], engine = phase_serve(
-                torch, pa, card,
-                lambda: serve.serve(cfg, params, device=dev), "hetero")
+            box = {}
+
+            def run():
+                box["out"] = serve.serve(cfg, params, device=dev)
+                return box["out"]
+            launches[arch], engine = phase_serve(torch, pa, card, run,
+                                                 "hetero")
+            moe_outs = {r.rid: r.out for r in box.pop("out")[0]}
             del params
         else:
             launches[arch], engine = phase_serve(
@@ -2765,6 +2928,9 @@ def phase_hetero(torch, F, pa, ops, batched, dev, card):
         elif arch in ("recurrentgemma-9b", "mamba2-1.3b"):
             launches[f"{arch} swap across slots"] = phase_swap_across_slots(
                 torch, pa, card, cfg, params)
+        else:
+            launches[f"{arch} mesh 1x1"] = phase_moe_mesh(
+                torch, pa, card, cfg, params, moe_outs)
         del params
         _free(torch)
         print(f"[hetero] {arch}: {time.perf_counter() - t0:.1f} s")
@@ -3473,6 +3639,11 @@ def main() -> int:
 
     _free(torch)
     t0 = time.perf_counter()
+    legacy_launches = phase_legacy(torch, pa, card, serve_outs)
+    print(f"[legacy] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
     ring_err, ring_rows, hetero_launches = run_hetero()
     print(f"[hetero] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -3499,6 +3670,7 @@ def main() -> int:
                **{f"qwen3-0.6b chaos {mode}": n
                   for mode, n in chaos_launches.items()},
                "qwen3-0.6b mesh 1x1": mesh_launches,
+               "qwen3-0.6b legacy": legacy_launches,
                **hetero_launches}
     print(json.dumps({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -9,6 +9,8 @@ sequence at a time).  There is no fallback from one to the other.
 The kernel is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C entry point, loaded with ``ctypes``, by the
 port's shared builder (``repro_torch.kernels._build``).
+:func:`paged_decode_attention` is the legacy per-sequence path's call
+into the same kernel (``serve/paged.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import functools
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -248,3 +251,32 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_attention.launches = 0
+
+
+def paged_decode_attention(q: torch.Tensor, state, layer: int, n_kv: int,
+                           seq_ids=None,
+                           max_pages: Optional[int] = None) -> torch.Tensor:
+    """One decode step of the legacy per-sequence path (the reference's
+    ``paged_decode_attention``): q [b, n_q, d], sequence ``i`` reading
+    page-table row ``seq_ids[i]`` (default ``0..b-1``) of the
+    ``PagedKVState`` ``state`` in layer ``layer`` → [b, n_q, d] float32.
+
+    q is scaled by 1/sqrt(d) in float32 and grouped [b, n_kv, g, d]; the
+    rows and lengths of ``seq_ids`` are taken on the device
+    (``index_select``), with no host read of device state, and the first
+    ``max_pages`` columns of the rows (default: all of them) go to
+    :func:`paged_attention` by row stride: the kernel on CUDA tensors,
+    its plain twin on CPU tensors.  ``seq_ids`` is a list of ints or an
+    index tensor."""
+    b, n_q, dh = q.shape
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qg = (q.float() * scale).reshape(b, n_kv, n_q // n_kv, dh).contiguous()
+    table, lens = state.page_table, state.seq_lens
+    if seq_ids is None:
+        table, lens = table[:b], lens[:b]
+    else:
+        ids = torch.as_tensor(seq_ids, dtype=torch.long, device=q.device)
+        table, lens = table.index_select(0, ids), lens.index_select(0, ids)
+    out = paged_attention(qg, state.k_pages[layer], state.v_pages[layer],
+                          table, lens, max_pages or table.shape[1])
+    return out.reshape(b, n_q, dh)

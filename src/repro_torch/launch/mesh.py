@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 
 AXIS_NAMES = ("data", "model")
-_KINDS = ("all_reduce", "all_gather", "broadcast")
+_KINDS = ("all_reduce", "all_gather", "all_to_all", "broadcast")
 
 
 class Mesh:
@@ -87,6 +87,24 @@ class Mesh:
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=self.groups[axis])
         return torch.cat(parts, dim=dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: str = "model"
+                   ) -> torch.Tensor:
+        """Split dim 0 of ``x`` into one equal chunk per rank of ``axis``
+        and send chunk ``j`` to the axis index ``j``; returns the chunks
+        received, concatenated on dim 0 in axis order (the reference's
+        ``lax.all_to_all(split_axis=0, concat_axis=0)``)."""
+        n = self.shape[axis]
+        if n == 1:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
+                             f"into {n} chunks")
+        self._count("all_to_all", x)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.groups[axis])
+        return out
 
     def broadcast(self, x: torch.Tensor, src: int = 0, axis: str = "model"
                   ) -> torch.Tensor:

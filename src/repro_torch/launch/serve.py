@@ -20,8 +20,7 @@ Counterpart of ``repro/launch/serve.py``: the closed-loop batch, the
 open-loop and observability modes (``--traffic``, ``--trace``,
 ``--metrics``), the disaggregated topology (``--disagg``) and the fault
 plane (``--faults``), and the device mesh (``--mesh-shape``,
-``--kv-layout``).  The reference's ``--legacy`` (the per-sequence path)
-waits for ROADMAP.md § A14a-ii.
+``--kv-layout``), and the legacy per-sequence path (``--legacy``).
 ``serve/engine.py`` is driven by ``serve/scheduler.py`` —
 admission, chunked prefill, the fused decode horizon, eviction and
 preemption — with page lifecycle through
@@ -85,8 +84,9 @@ whole on every rank (``replicate``); the page table, allocator and
 scheduler are host-global, the same on every rank.  On a ``model`` axis
 wider than 1 attention takes the plain batched path (``--attn-impl``
 defaults to ``gather`` there; the kernel is refused, as in the
-reference), ``--kv-layout auto`` is refused (§ A15b), MoE stacks are
-refused (§ A14a-ii) and so is a ``data`` axis wider than 1 (§ A14b).  Both
+reference), MoE layers dispatch expert-parallel (``distributed/moe_ep.py``),
+``--kv-layout auto`` is refused (§ A15b) and so is a ``data`` axis wider
+than 1 (§ A14b).  Both
 ``--disagg`` engines get the mesh and share one set of weights.  On a
 ``model`` axis wider than 1 the weights are drawn on the host and each
 rank copies only its blocks to its device (``shard_params``), so the
@@ -94,6 +94,15 @@ device never holds the whole model; the draws are then the CPU
 generator's, which on ``--device cuda`` differ from a one-card run's.
 Only rank 0 prints and writes ``--trace``; the run prints the mesh, its
 layout and placement, and the collectives each rank made.
+
+``--legacy`` serves the same prompts through the per-sequence oracle
+(``serve/paged.py::PagedServer``: one token of every active request per
+call, per-sequence K/V writes, the paged-attention kernel on the card),
+``--batch-slots`` slots on ``1 + slots x 32`` pages of 8 tokens; its
+generations equal the engine's token for token at the same seed.  It
+serves uniform dense GQA stacks only and refuses every flag that needs
+the engine (``--traffic``, ``--overlap``, ``--trace``, ``--metrics``,
+``--disagg``, ``--faults``, ``--fault-model``, ``--mesh-shape``).
 """
 from __future__ import annotations
 
@@ -104,6 +113,7 @@ import time
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from ..configs import ARCH_IDS, get_config, smoke_config
@@ -114,7 +124,8 @@ from ..serve.disagg import DisaggScheduler
 from ..serve.engine import PagedEngine
 from ..serve.faults import plan_from_args
 from ..serve.prefix_cache import PrefixCache
-from ..serve.scheduler import Scheduler
+from ..serve.paged import PagedServer
+from ..serve.scheduler import Request, Scheduler
 from ..serve.telemetry import Telemetry, check_trace
 from ..serve.traffic import LatencyAccountant, TrafficDriver, make_trace
 
@@ -234,6 +245,8 @@ def _parser() -> argparse.ArgumentParser:
                          "model instead of --fault-rate, e.g. "
                          "'simdram:node=22' (implies --faults)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--legacy", action="store_true",
+                    help="per-sequence reference path (serve/paged.py)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     return ap
@@ -241,9 +254,21 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Run the serve (closed-loop, or open-loop with ``--traffic``) and
-    return ``(finished_requests, engine, scheduler)``."""
+    return ``(finished_requests, engine, scheduler)``; under ``--legacy``
+    ``(finished_requests, PagedServer, None)``."""
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.legacy and (args.traffic or args.overlap):
+        ap.error("--traffic/--overlap need the engine path (drop --legacy)")
+    if args.legacy and (args.trace or args.metrics):
+        ap.error("--trace/--metrics need the engine path (drop --legacy)")
+    if args.legacy and args.disagg:
+        ap.error("--disagg needs the engine path (drop --legacy)")
+    if args.legacy and (args.faults or args.fault_model):
+        ap.error("--faults needs the VBI allocator boundaries "
+                 "(drop --legacy)")
+    if args.legacy and args.mesh_shape is not None:
+        ap.error("--mesh-shape needs the engine path (drop --legacy)")
     mesh, device = None, args.device
     attn_impl = args.attn_impl or "kernel"
     if args.mesh_shape is not None:
@@ -272,6 +297,25 @@ def main(argv=None):
                          f"torchrun --nproc-per-node {data * model}")
         mesh = make_host_mesh(data, model, device=str(device))
     cfg = serve_config(args.arch, args.smoke)
+    if args.legacy and (cfg.family not in ("dense", "vlm")
+                        or cfg.local_global_period or cfg.rglru_period
+                        or cfg.window):
+        ap.error(f"--legacy (serve/paged.py) only supports uniform dense "
+                 f"GQA stacks; {cfg.name} needs the property-typed engine "
+                 f"(drop --legacy)")
+    if args.legacy:
+        params = init_params(cfg, seed=args.seed, device=device)
+        t0 = time.perf_counter()
+        finished, srv = _run_legacy(
+            cfg, params, _prompts(cfg, args.requests, args.prompt_len,
+                                  args.shared_prefix, args.seed),
+            args.batch_slots, args.max_new, device)
+        dt = time.perf_counter() - t0
+        n_out = sum(len(r.out) for r in finished)
+        print(f"[serve] {len(finished)} requests, {n_out} generated tokens "
+              f"in {dt:.3f}s on {srv.device} ({n_out / dt:.1f} tok/s, "
+              f"legacy)")
+        return finished, srv, None
     if mesh is not None and mesh.shape["model"] > 1:
         # drawn on the host, so the card holds only this rank's blocks
         params = shard_params(cfg, init_params(cfg, seed=args.seed,
@@ -337,10 +381,7 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     ``DisaggScheduler`` (its ``prefill.engine`` is the prefill engine)."""
     rank0 = mesh is None or mesh.rank == 0
     echo: Callable = print if rank0 else (lambda *a, **k: None)
-    rng = np.random.default_rng(seed)
-    system = rng.integers(0, cfg.vocab, shared_prefix).tolist()
-    prompts = [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
-               for _ in range(requests)]
+    prompts = _prompts(cfg, requests, prompt_len, shared_prefix, seed)
     page_size = 8
     slots = decode_slots if disagg else batch_slots
     if n_pages is None:
@@ -438,6 +479,50 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     echo(f"[serve] {len(finished)} requests, {n_out} generated tokens in "
           f"{dt:.3f}s on {engine.device} ({n_out / dt:.1f} tok/s)")
     return finished, engine, sched
+
+
+def _prompts(cfg, requests: int, prompt_len: int, shared_prefix: int,
+             seed: int):
+    """The closed-loop prompts: one ``shared_prefix``-token system prompt
+    drawn from ``seed`` first, then ``prompt_len`` tokens per request."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, cfg.vocab, shared_prefix).tolist()
+    return [system + rng.integers(0, cfg.vocab, prompt_len).tolist()
+            for _ in range(requests)]
+
+
+def _run_legacy(cfg, params, prompts, batch_slots: int, max_new: int,
+                device):
+    """The reference's legacy loop: admit into free slots, feed each
+    active request one token per call (its prompt, then its own greedy
+    tokens), evict when ``max_new`` are out.  Returns (finished requests
+    in finishing order, the server)."""
+    srv = PagedServer(cfg, params, n_pages=1 + batch_slots * 32,
+                      page_size=8, max_seqs=batch_slots, device=device)
+    pending = [Request(i, p, max_new) for i, p in enumerate(prompts)]
+    active, fed, finished = {}, {}, []
+    while pending or active:
+        while pending and len(active) < batch_slots:
+            slot = next(s for s in range(batch_slots) if s not in active)
+            srv.admit(slot)
+            active[slot], fed[slot] = pending.pop(0), 0
+        slots = sorted(active)
+        toks = [active[s].tokens[fed[s]] for s in slots]
+        logits = srv.decode(torch.tensor(toks, dtype=torch.int32)[:, None],
+                            slots)
+        nxt = logits[:, 0].argmax(-1).tolist()
+        for i, s in enumerate(slots):
+            req = active[s]
+            fed[s] += 1
+            if fed[s] >= len(req.prompt):
+                req.out.append(int(nxt[i]))
+            if len(req.out) >= req.max_new:
+                srv.evict(s)
+                finished.append(active.pop(s))
+                print(f"[serve] req {req.rid} done: {req.prompt} -> "
+                      f"{req.out[:8]}...")
+    print(f"[serve] legacy VBI stats {srv.kv.stats}")
+    return finished, srv
 
 
 def _run_traffic(cfg, sched, process: str, requests: int, rate: float,

@@ -5,9 +5,10 @@ Counterpart of ``repro/models/layers.py``.  All attention flows through
 :func:`attention`, which dispatches between a direct path (small S) and a
 memory-bounded chunked online-softmax path, so activation memory stays
 O(S·chunk) instead of O(S²).  The MoE runs the reference's local grouped
-path; its expert-parallel mesh path waits for ROADMAP.md § A14a-ii (the
-serve engine refuses MoE stacks on a mesh until then).  :func:`mlp` takes
-its local-shard form on a device mesh (``distributed/axes.py``).
+path, and on a device mesh its expert-parallel path
+(``distributed/moe_ep.py``), both through one dispatch and one combine.
+:func:`mlp` takes its local-shard form on a device mesh
+(``distributed/axes.py``).
 """
 from __future__ import annotations
 
@@ -195,31 +196,47 @@ def _moe_groups(T: int, want: int = 32) -> int:
 
 
 def moe(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Top-k capacity MoE on x [B, S, d] (the local grouped path)."""
+    """Top-k capacity MoE on x [B, S, d].  Under a mesh's
+    ``logical_axes`` the reference's routing to the expert-parallel path
+    (``distributed/moe_ep.py::moe_ep``): the serve decode shape [slots, 1,
+    d] goes in as [1, slots, d] when the slots split over an EP ``model``
+    axis, so each rank routes only its slots; without a mesh, or when the
+    batch does not split over the batch axes, the local grouped path.
+    The port's one mesh caller, the serve step, runs on a 1-wide ``data``
+    axis (ROADMAP.md § A14b), where x is the whole batch."""
+    from ..distributed.axes import _AXES
+    ctx = _AXES.get()
     B, S, d = x.shape
+    if ctx is not None and B % ctx["mesh"].shape["data"] == 0:
+        from ..distributed.moe_ep import moe_ep
+        mesh = ctx["mesh"]
+        n_b, n_m = mesh.shape["data"], mesh.shape["model"]
+        ep = cfg.n_experts % n_m == 0 and n_m > 1
+        if cfg.moe_legacy_dispatch:
+            # the reference's old path: B·S merged before the dispatch
+            s_div = n_m if (ep and S % n_m == 0) else 1
+            xm = x.reshape(n_b * s_div, (B // n_b) * (S // s_div), d)
+            return moe_ep(params, xm, cfg, mesh).reshape(B, S, d)
+        if S == 1 and B > 1 and n_b == 1 and ep and B % n_m == 0:
+            return moe_ep(params, x.reshape(1, B, d), cfg, mesh
+                          ).reshape(B, S, d)
+        return moe_ep(params, x, cfg, mesh)
     return _moe_local(params, x.reshape(B * S, d), cfg).reshape(B, S, d)
 
 
-def _moe_local(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Grouped sort-based top-k MoE with per-group capacity.
-
-    x: [T, d] → [T, d].  Tokens are split into G groups; within a group
-    the (token, choice) pairs are sorted by expert (stably, so the pairs
-    past an expert's capacity ``cap`` are the same ones the reference
-    drops) and dispatched into a [G, E, cap, d] buffer; the expert FFNs
-    are batched einsums in the promoted dtype of activations and weights.
-    Capacity and groups are host ints from shapes.
-    Each token's K expert outputs are summed in a fixed order (choice 0
-    first), so two runs give the same bits on any device."""
-    T, d = x.shape
-    E, K = cfg.n_experts, cfg.top_k
-    G = _moe_groups(T, cfg.moe_groups)
-    Tg = T // G
-    cap = int(max(1, round(Tg * K / E * cfg.capacity_factor)))
-    dev = x.device
-    xg = x.reshape(G, Tg, d)
-    logits = torch.einsum("gtd,de->gte", xg.float(),
-                          params["router"].float())
+def moe_dispatch(xg: torch.Tensor, router: torch.Tensor, K: int, E: int,
+                 cap: int):
+    """Route xg [G, Tg, d] top-``K`` of ``E`` experts within each group
+    and dispatch it into a [G, E, cap, d] buffer: ``(buf, route)``, where
+    ``route`` is what :func:`moe_combine` needs.  The (token, choice)
+    pairs are sorted by expert stably, so the pairs past an expert's
+    capacity ``cap`` are the ones the reference drops; a dropped pair adds
+    zeros into its expert's last row (exact in any order, so the scatter
+    needs no fixed order).  Shared by the local path (G groups) and
+    ``moe_ep`` (one group)."""
+    G, Tg, d = xg.shape
+    dev = xg.device
+    logits = torch.einsum("gtd,de->gte", xg.float(), router.float())
     probs = torch.softmax(logits, -1)
     topw, topi = torch.topk(probs, K, dim=-1, sorted=True)   # [G, Tg, K]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
@@ -236,27 +253,57 @@ def _moe_local(params, x: torch.Tensor, cfg) -> torch.Tensor:
     gidx = torch.arange(G, device=dev)[:, None]
     vals = torch.where(keep[..., None],
                        torch.gather(xg, 1, tok[..., None].expand(-1, -1, d)),
-                       0.0).to(x.dtype)
-    # dropped pairs add zeros into their expert's last row: exact in any
-    # order, so the scatter needs no fixed order
+                       0.0).to(xg.dtype)
     flat = ((gidx * E + e_sorted) * cap + slot).reshape(-1)
-    buf = torch.zeros((G * E * cap, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((G * E * cap, d), dtype=xg.dtype, device=dev)
     buf.index_add_(0, flat, vals.reshape(-1, d))
-    buf = buf.reshape(G, E, cap, d)
-    h = F.silu(torch.einsum("gecd,edf->gecf", *promoted(buf, params["w1"]))) \
-        * torch.einsum("gecd,edf->gecf", *promoted(buf, params["w3"]))
-    out_e = torch.einsum("gecf,efd->gecd", *promoted(h, params["w2"]))
-    gathered = out_e[gidx, e_sorted, slot]                    # [G, Tg*K, d]
     w = (torch.gather(topw.reshape(G, Tg * K), 1, order)
-         * keep).to(x.dtype)
-    # back to (token, choice) order, then a fixed-order sum over choices
-    # in x.dtype: the reference scatter-adds into zeros of x.dtype, which
-    # casts its updates to it
-    weighted = (gathered * w[..., None]).to(x.dtype)
+         * keep).to(xg.dtype)
+    return buf.reshape(G, E, cap, d), (e_sorted, slot, order, w)
+
+
+def moe_combine(out_e: torch.Tensor, route, K: int) -> torch.Tensor:
+    """The experts' outputs out_e [G, E, cap, d] back to tokens [G, Tg,
+    d]: each token's K weighted outputs summed in a fixed order (choice 0
+    first) in the activations' dtype, so two runs give the same bits on
+    any device.  The reference scatter-adds into zeros of that dtype,
+    which casts its updates to it; the port does not scatter-add."""
+    e_sorted, slot, order, w = route
+    G, d = out_e.shape[0], out_e.shape[-1]
+    gidx = torch.arange(G, device=out_e.device)[:, None]
+    gathered = out_e[gidx, e_sorted, slot]                    # [G, Tg*K, d]
+    weighted = (gathered * w[..., None]).to(w.dtype)
+    # back to (token, choice) order, then the fixed-order sum over choices
     contrib = torch.empty_like(weighted).scatter_(
         1, order[..., None].expand(-1, -1, d), weighted)
-    contrib = contrib.reshape(G, Tg, K, d)
-    yg = contrib[:, :, 0]
+    contrib = contrib.reshape(G, -1, K, d)
+    y = contrib[:, :, 0]
     for k in range(1, K):
-        yg = yg + contrib[:, :, k]
-    return yg.reshape(T, d)
+        y = y + contrib[:, :, k]
+    return y
+
+
+def expert_ffn(buf: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """The experts' SwiGLU FFNs on buf [G, E, c, d] with weights [E, d,
+    f] / [E, f, d], batched einsums in the promoted dtype of activations
+    and weights."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", *promoted(buf, w1))) \
+        * torch.einsum("gecd,edf->gecf", *promoted(buf, w3))
+    return torch.einsum("gecf,efd->gecd", *promoted(h, w2))
+
+
+def _moe_local(params, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Grouped sort-based top-k MoE with per-group capacity.
+
+    x: [T, d] → [T, d].  Tokens are split into G groups, each routed and
+    dispatched on its own (:func:`moe_dispatch`) into a [G, E, cap, d]
+    buffer; capacity and groups are host ints from shapes."""
+    T, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    G = _moe_groups(T, cfg.moe_groups)
+    Tg = T // G
+    cap = int(max(1, round(Tg * K / E * cfg.capacity_factor)))
+    buf, route = moe_dispatch(x.reshape(G, Tg, d), params["router"], K, E,
+                              cap)
+    out_e = expert_ffn(buf, params["w1"], params["w3"], params["w2"])
+    return moe_combine(out_e, route, K).reshape(T, d)

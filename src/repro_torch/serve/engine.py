@@ -61,13 +61,18 @@ tensor-parallel, every collective explicit and counted on the mesh:
     (:func:`batched_paged_attention`); a replicated pool is written whole
     and attended whole on every rank;
   * RG-LRU and Mamba-2 take their local-shard forms
-    (``models/rglru.py``, ``models/ssm.py``).
+    (``models/rglru.py``, ``models/ssm.py``);
+  * MoE layers dispatch expert-parallel (``distributed/moe_ep.py``: two
+    all-to-alls per layer, or one all-reduce when the experts do not
+    divide over ``model``), with ``capacity_factor`` raised to E/K on any
+    mesh, as in the reference, so that no token is capacity-dropped.
 
-A ``1 x 1`` mesh runs the same ops as ``mesh=None`` and no collective.
-Refused, each naming the ROADMAP.md item that lifts it: the kernel on a
-``model`` axis wider than 1 (as in the reference), MoE stacks on a mesh
-(§ A14a-ii), a ``data`` axis wider than 1 (§ A14b), ``kv_layout="auto"``
-on a ``model`` axis wider than 1 (§ A15b).
+A ``1 x 1`` mesh makes no collective; it runs the same ops as
+``mesh=None`` except that an MoE layer dispatches its tokens in one group
+where the local path takes many.  Refused, each naming the ROADMAP.md
+item that lifts it: the kernel on a ``model`` axis wider than 1 (as in
+the reference), a ``data`` axis wider than 1 (§ A14b), int8 weights and
+``kv_layout="auto"`` on a ``model`` axis wider than 1 (§ A15b).
 """
 from __future__ import annotations
 
@@ -344,8 +349,8 @@ def _update_rows(dst: torch.Tensor, new: torch.Tensor,
     dst.copy_(torch.where(mask, new.to(dst.dtype), dst))
 
 
-def _check_mesh(cfg: ModelConfig, params, mesh, dev: torch.device,
-                attn_impl: str, kv_layout: str) -> str:
+def _check_mesh(params, mesh, dev: torch.device, attn_impl: str,
+                kv_layout: str) -> str:
     """The mesh refusals, each naming the ROADMAP.md item that lifts it;
     returns the pool layout (``auto`` resolves to ``shard`` on a 1-wide
     ``model`` axis, where both layouts are the same)."""
@@ -360,11 +365,6 @@ def _check_mesh(cfg: ModelConfig, params, mesh, dev: torch.device,
         raise NotImplementedError(
             f"a 'data' axis of {mesh.shape['data']} in serving is not "
             f"ported: the data/FSDP axis comes with ROADMAP.md § A14b")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE stacks on a device mesh dispatch expert-"
-            f"parallel in the reference (moe_ep), which is not ported: "
-            f"ROADMAP.md § A14a-ii")
     if kv_layout == "auto":
         if n_model > 1:
             raise NotImplementedError(
@@ -382,7 +382,7 @@ def _check_mesh(cfg: ModelConfig, params, mesh, dev: torch.device,
                 "int8 (q8) weights on a 'model' axis wider than 1: the "
                 "activation's per-row int8 scale spans the whole "
                 "contraction, which a row block cannot see "
-                "(ROADMAP.md § A14a-ii)")
+                "(ROADMAP.md § A15b)")
     return kv_layout
 
 
@@ -433,8 +433,15 @@ class PagedEngine:
         dev = resolve_device(device)
         n_model = 1 if mesh is None else mesh.shape["model"]
         if mesh is not None:
-            kv_layout = _check_mesh(cfg, params, mesh, dev, attn_impl,
-                                    kv_layout)
+            kv_layout = _check_mesh(params, mesh, dev, attn_impl, kv_layout)
+            if cfg.n_experts > 0:
+                # no token may be capacity-dropped on a mesh where the
+                # unmeshed path keeps it: cap >= T_loc holds iff
+                # capacity_factor >= E/K (moe_ep.ep_capacity); at the
+                # local path's one-token decode groups the bump leaves cap
+                # as it was
+                cfg = dataclasses.replace(cfg, capacity_factor=max(
+                    cfg.capacity_factor, cfg.n_experts / cfg.top_k))
         if dev.type == "cuda" and attn_impl == "gather" and n_model == 1:
             raise ValueError(
                 "attn_impl='gather' is the plain twin of the paged-attention "

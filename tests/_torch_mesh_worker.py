@@ -17,7 +17,13 @@ from pathlib import Path
 
 import torch
 
-ARCHS = ("qwen3-0.6b", "gemma3-12b", "recurrentgemma-9b", "mamba2-1.3b")
+ARCHS = ("qwen3-0.6b", "gemma3-12b", "recurrentgemma-9b", "mamba2-1.3b",
+         "mixtral-8x7b", "qwen3-moe-235b-a22b")
+#: the MoE stacks among them (expert-parallel on the mesh)
+MOE_ARCHS = ("mixtral-8x7b", "qwen3-moe-235b-a22b")
+#: (B, S) of the moe_ep cases at one token per sequence
+#: (tests/test_mesh_serve.py::test_moe_ep_T1_matches_dense_bitexact)
+T1_SHAPES = ((1, 1), (2, 1), (4, 1))
 LAYOUTS = ("shard", "replicate")
 HORIZONS = (1, 8)
 #: the reference's pool and scheduler settings (tests/test_mesh_serve.py)
@@ -92,8 +98,6 @@ def _strip(events):
 def _refusals(world, mesh, inputs):
     """Each refusal: (exception class name, message)."""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve import serve_config
-    from repro_torch.models.model import init_params
     from repro_torch.serve.engine import PagedEngine
     cfg, params = inputs["qwen3-0.6b"]["cfg"], inputs["qwen3-0.6b"]["params"]
     out = {}
@@ -108,11 +112,6 @@ def _refusals(world, mesh, inputs):
     catch("kernel", lambda: PagedEngine(
         cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
         attn_impl="kernel", mesh=mesh, kv_layout="shard"))
-    moe_cfg = serve_config("mixtral-8x7b")
-    moe_params = init_params(moe_cfg, seed=0, device="cpu")
-    catch("moe", lambda: PagedEngine(
-        moe_cfg, moe_params, n_pages=9, page_size=8, max_seqs=1,
-        device="cpu", attn_impl="gather", mesh=mesh, kv_layout="shard"))
     catch("auto", lambda: PagedEngine(
         cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
         attn_impl="gather", mesh=mesh, kv_layout="auto"))
@@ -120,6 +119,38 @@ def _refusals(world, mesh, inputs):
     catch("data", lambda: PagedEngine(
         cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
         attn_impl="gather", mesh=data_mesh, kv_layout="shard"))
+    return out
+
+
+def _moe_cases(world, mesh, inputs):
+    """``moe_ep`` on this group beside the port's local ``moe`` on the
+    same weights and inputs, each call's collectives recorded: the
+    mixtral smoke MoE at one token per sequence (EP), and on 4 ranks the
+    TP fallback (6 experts over 4) and a 2x2 ``data x model`` mesh (each
+    rank feeds its ``data`` block)."""
+    from repro_torch.distributed.moe_ep import ep_capacity, moe_ep
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import moe
+    m = inputs["moe"]
+    out = {}
+
+    def call(name, case, mesh, x):
+        mesh.reset_collectives()
+        out[name] = {"ep": moe_ep(case["params"], x, case["cfg"], mesh),
+                     "collectives": _collectives(mesh),
+                     "local": moe(case["params"], x, case["cfg"])}
+
+    for B, S in T1_SHAPES:
+        call(("t1", B, S), m["t1"], mesh, m["t1"]["x"][(B, S)])
+        out[("t1", B, S)]["cap"] = ep_capacity(m["t1"]["cfg"], mesh, B, S)
+    if world == 4:
+        call("tp", m["tp"], mesh, m["tp"]["x"])
+        grid = make_host_mesh(2, 2)
+        x = m["data"]["x"]
+        n = x.shape[0] // 2
+        blk = x[grid.coords["data"] * n:(grid.coords["data"] + 1) * n]
+        call("data", m["data"], grid, blk)
+        out["data"]["coords"] = dict(grid.coords)
     return out
 
 
@@ -227,6 +258,7 @@ def cases(world, inputs):
                         "sharded": bool(blk.props & VBProps.SHARDED)}
     eng.alloc.free(blk)
     res["refusals"] = _refusals(world, mesh, inputs)
+    res["moe"] = _moe_cases(world, mesh, inputs)
     # the mesh's own helpers: broadcast from axis index 0, constrain's
     # gather and slice, each counted
     from repro_torch.distributed.axes import constrain, logical_axes
@@ -271,8 +303,8 @@ def run(rank: int, world: int, rdzv: str, in_path: str, out_dir: str):
 
 def run_nccl(rank: int, world: int, rdzv: str, out_dir: str):
     """A rank of the card test of a 1x``world`` mesh over nccl (one card
-    per rank): the qwen3 smoke serve meshed and unmeshed, its tokens in
-    ``rank{rank}.pt``."""
+    per rank): the qwen3 and mixtral (expert-parallel) smoke serves meshed
+    and unmeshed, their tokens in ``rank{rank}.pt``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import serve_config
@@ -285,16 +317,20 @@ def run_nccl(rank: int, world: int, rdzv: str, out_dir: str):
         dist.init_process_group("nccl", init_method=f"file://{rdzv}",
                                 world_size=world, rank=rank,
                                 timeout=datetime.timedelta(seconds=60))
-        cfg = serve_config("qwen3-0.6b")
-        params = init_params(cfg, seed=0, device=dev)
         prompts = [[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]]
         mesh = make_host_mesh(1, world, device="cuda")
         res = {}
-        for name, m, impl in (("mesh", mesh, "gather"),
-                              ("plain", None, "kernel")):
-            eng = PagedEngine(cfg, params, device=dev, attn_impl=impl,
-                              mesh=m, kv_layout="shard", **POOL)
-            res[name], _ = _serve(eng, prompts, MAX_NEW, 8)
+        for arch in ("qwen3-0.6b", "mixtral-8x7b"):
+            cfg = serve_config(arch)
+            params = init_params(cfg, seed=0, device=dev)
+            res[arch] = {}
+            for name, m, impl in (("mesh", mesh, "gather"),
+                                  ("plain", None, "kernel")):
+                eng = PagedEngine(cfg, params, device=dev, attn_impl=impl,
+                                  mesh=m, kv_layout="shard", **POOL)
+                res[arch][name], _ = _serve(eng, prompts, MAX_NEW, 8)
+            res[arch]["all_to_all"] = mesh.collectives["all_to_all"]["calls"]
+            mesh.reset_collectives()
         torch.save(res, out / f"rank{rank}.pt")
     except BaseException:                          # noqa: BLE001
         (out / f"rank{rank}.err").write_text(traceback.format_exc())

@@ -80,8 +80,13 @@ runs on a machine without JAX:
   * serving on a device mesh: the engine on a 1x1 mesh with the kernel
     serves qwen3, gemma3, recurrentgemma and mamba2 smoke with the
     unmeshed engine's tokens and kernel launches, no collective, and a
-    horizon free of host syncs; a 1x2 mesh on two cards over nccl gives the
-    unmeshed tokens (skipped on a machine with one card).
+    horizon free of host syncs, and so does it for the MoE stacks
+    (mixtral, qwen3-moe) through ``moe_ep``; a 1x2 mesh on two cards over
+    nccl gives the unmeshed tokens for qwen3 and mixtral (skipped on a
+    machine with one card);
+  * the legacy path: ``paged_decode_attention`` on the kernel gives its
+    plain twin's output on out-of-order rows, and ``--legacy`` gives the
+    engine launcher's tokens with one launch per layer per decode call.
 """
 import numpy as np
 import pytest
@@ -1209,10 +1214,12 @@ def test_whisper_prefill_decode_on_card_matches_cpu(dev):
 
 # -- serving on a device mesh --------------------------------------------------
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-12b",
-                                  "recurrentgemma-9b", "mamba2-1.3b"])
+                                  "recurrentgemma-9b", "mamba2-1.3b",
+                                  "mixtral-8x7b", "qwen3-moe-235b-a22b"])
 def test_mesh_1x1_on_card_equals_unmeshed(dev, arch):
-    """The 1x1 mesh runs the same ops as no mesh: the same tokens and
-    kernel launches, no collective, and a horizon free of host syncs."""
+    """The 1x1 mesh runs the same ops as no mesh (an MoE layer dispatches
+    its tokens in one group there): the same tokens and kernel launches,
+    no collective, and a horizon free of host syncs."""
     cfg = serve_config(arch)
     params = init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(3)
@@ -1251,8 +1258,9 @@ def test_mesh_1x1_on_card_equals_unmeshed(dev, arch):
 
 
 def test_mesh_1x2_nccl_equals_unmeshed(dev, tmp_path):
-    """Two ranks, one card each, on an nccl group: the qwen3 smoke serve
-    on a 1x2 mesh (``kv_layout`` shard) gives the unmeshed tokens."""
+    """Two ranks, one card each, on an nccl group: the qwen3 and mixtral
+    smoke serves on a 1x2 mesh (``kv_layout`` shard; mixtral's experts
+    dispatched by all-to-all) give the unmeshed tokens."""
     if torch.cuda.device_count() < 2:
         pytest.skip("a 1x2 mesh over nccl needs two cards; one H100 cannot "
                     "run it")
@@ -1275,4 +1283,46 @@ def test_mesh_1x2_nccl_equals_unmeshed(dev, tmp_path):
          if (tmp_path / f"rank{r}.err").exists()]
     res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
            for r in range(2)]
-    assert res[0]["mesh"] == res[0]["plain"] == res[1]["mesh"]
+    for arch in ("qwen3-0.6b", "mixtral-8x7b"):
+        assert res[0][arch]["mesh"] == res[0][arch]["plain"] \
+            == res[1][arch]["mesh"], arch
+    assert res[0]["qwen3-0.6b"]["all_to_all"] == 0
+    assert res[0]["mixtral-8x7b"]["all_to_all"] > 0
+
+
+# -- the legacy per-sequence path ----------------------------------------------
+def test_paged_decode_attention_kernel_matches_plain(dev):
+    """``paged_decode_attention`` on the card (the kernel) against the CPU
+    (its plain twin) on a seeded state: rows [2, 0, 3] out of order, the
+    first 4 of 8 columns; one launch per call."""
+    rng = np.random.default_rng(3)
+    shape = (2, 16, 4, 2, 16)
+    arrays = (rng.standard_normal(shape).astype(np.float32),
+              rng.standard_normal(shape).astype(np.float32),
+              np.stack([rng.permutation(np.arange(1, 16))[:8]
+                        for _ in range(4)]).astype(np.int32),
+              np.asarray([5, 1, 13, 9], np.int32))
+    q = torch.from_numpy(rng.standard_normal((3, 4, 16)).astype(np.float32))
+    cpu = tk.PagedKVState(*(torch.from_numpy(a) for a in arrays))
+    card = tk.PagedKVState(*(torch.from_numpy(a).to(dev) for a in arrays))
+    for layer in (0, 1):
+        want = ops.paged_decode_attention(q, cpu, layer, 2, [2, 0, 3], 4)
+        before = paged_attention.launches
+        got = ops.paged_decode_attention(q.to(dev), card, layer, 2,
+                                         [2, 0, 3], 4)
+        assert paged_attention.launches - before == 1
+        torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_legacy_launcher_on_card(dev):
+    """``--legacy --device cuda``: the engine launcher's tokens, and the
+    server's attention is the kernel, one launch per layer per decode
+    call."""
+    base = ["--device", "cuda", "--requests", "3", "--max-new", "8"]
+    before = paged_attention.launches
+    legacy, srv, _ = launch_serve.main(base + ["--legacy"])
+    launches = paged_attention.launches - before
+    assert srv.decode_calls > 0
+    assert launches == srv.cfg.n_layers * srv.decode_calls
+    engine, _, _ = launch_serve.main(base)
+    assert {r.rid: r.out for r in legacy} == {r.rid: r.out for r in engine}

@@ -8,14 +8,15 @@ device on a gloo group.  The module spawns one group per world size
 the tests read what the ranks wrote.  The params are the port's seeded
 ``init_params``; the parent hands the same numbers to the reference (in
 ``jax.tree`` leaf order, ``repro_torch/tree.py``) and computes its greedy
-tokens (``_torch_parity.jax_greedy``) while the ranks run; the ranks
+tokens (``_torch_parity.jax_greedy``) before the ranks start; the ranks
 never load JAX.  The ranks meet through a file rendezvous (no TCP port
 to collide between test workers), every collective waits at most 60 s,
 and the parent kills ranks still alive after ``JOIN_S`` and fails their
 tests.
 
   * tokens equal the reference's greedy decode for qwen3-0.6b, gemma3-12b
-    (ring pool), recurrentgemma-9b and mamba2-1.3b, under ``kv_layout``
+    (ring pool), recurrentgemma-9b, mamba2-1.3b, mixtral-8x7b (ring pool,
+    MoE) and qwen3-moe-235b-a22b (MoE, qk-norm), under ``kv_layout``
     shard and replicate and horizons 1 and 8, and every rank returns the
     same tokens, stats and trace;
   * one decode step's logits are within ``LOGIT_TOL`` of the unmeshed
@@ -26,13 +27,20 @@ tests.
   * preemption and host swap on the 1x4 sharded pool equal the roomy run;
     a block image through the sharded pool is the unmeshed pool's, bytes
     and CRC; blocks carry the mesh's placement and ``VBProps.SHARDED``;
-  * the refusals (the kernel on a wide ``model`` axis, MoE on a mesh,
-    ``data`` > 1, ``kv_layout='auto'`` on a wide ``model`` axis) and the
-    launcher (``--mesh-shape 1x2 --kv-layout shard``, with and without
+  * the refusals (the kernel on a wide ``model`` axis, ``data`` > 1,
+    ``kv_layout='auto'`` on a wide ``model`` axis) and the launcher
+    (``--mesh-shape 1x2 --kv-layout shard``, with and without
     ``--disagg``) in 2 ranks;
-  * in this process: a 1x1 mesh is bit-equal to ``mesh=None`` for all
-    four stacks, with zero collectives.
+  * ``moe_ep`` (``distributed/moe_ep.py``) against the port's local MoE
+    and the reference's ``_moe_local``: at one token per sequence on 1x2
+    and 1x4 (expert-parallel, two all-to-alls a call), the TP fallback
+    (6 experts over 4 ranks, one all-reduce) and a 2x2 ``data x model``
+    mesh made in the 4-rank group;
+  * in this process: a 1x1 mesh is bit-equal to ``mesh=None`` for every
+    stack, with zero collectives; ``moe_ep`` on one device; the engine's
+    capacity bump against the reference engine's.
 """
+import dataclasses
 import multiprocessing as mp
 import time
 import zlib
@@ -45,15 +53,21 @@ import torch
 
 import _torch_mesh_worker as W
 from _torch_parity import jax_greedy, one_torch_thread  # noqa: F401
+from repro.launch.mesh import make_host_mesh as ref_host_mesh
 from repro.launch.serve import serve_config as ref_serve_config
+from repro.models import layers as jl
 from repro.models import model as jm
+from repro.models.config import ModelConfig as RefConfig
+from repro.serve.engine import PagedEngine as RefEngine
 from repro_torch import tree
 from repro_torch.core.vbi.address_space import VBProps
-from repro_torch.distributed.sharding import serve_state_specs
+from repro_torch.distributed.moe_ep import ep_capacity, moe_ep
+from repro_torch.distributed.sharding import ParamBlocks, serve_state_specs
 from repro_torch.launch import serve as tserve
-from repro_torch.distributed.sharding import ParamBlocks
 from repro_torch.launch.mesh import (Mesh, make_host_mesh,
                                      make_production_mesh)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import moe
 from repro_torch.models.model import init_params
 
 WORLDS = (2, 4)
@@ -62,6 +76,13 @@ JOIN_S = 240
 #: one decode step's logits, meshed vs unmeshed, and a prompt's KV and
 #: recurrent state (readings at most 2.15e-6 over every case; about 5x)
 LOGIT_TOL = 1e-5
+#: moe_ep against the port's and the reference's local MoE on the same
+#: weights and inputs: float32 products of other shapes, summed in another
+#: order (readings at most 2.4e-7; about 4x)
+MOE_TOL = 1e-6
+#: the reference's bound for its 2x2 moe_ep case, relative to the output's
+#: largest magnitude (tests/test_distributed.py::test_moe_ep_and_decode_on_mesh)
+DATA_REL_TOL = 2e-5
 
 
 def _port(arch):
@@ -81,6 +102,62 @@ def _reference_params(arch, tp):
     return cfg, jax.tree.unflatten(jax.tree.structure(shape), leaves)
 
 
+def _bumped(cfg):
+    """``cfg`` with the engine's capacity bump on a mesh: capacity_factor
+    raised to E/K."""
+    return dataclasses.replace(cfg, capacity_factor=max(
+        cfg.capacity_factor, cfg.n_experts / cfg.top_k))
+
+
+def _moe_case(fields, key, x):
+    """A hand-built MoE config (port and reference) with the reference's
+    ``_init_moe`` weights: (port case, reference case)."""
+    rcfg = RefConfig(**fields)
+    jp = jm._init_moe(rcfg, jax.random.key(key), jnp.float32)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    return ({"cfg": ModelConfig(**fields), "params": tp,
+             "x": torch.from_numpy(x)}, (rcfg, jp, jnp.asarray(x)))
+
+
+def _moe_inputs(moe_params, ref_moe_params):
+    """The ``moe_ep`` cases' inputs for the ranks, and the reference's
+    local MoE on each (``{case: numpy output}``)."""
+    _TINY = dict(name="t", family="moe", n_layers=1, d_model=32, n_heads=4,
+                 n_kv=2, head_dim=8, d_ff=0, expert_d_ff=48, vocab=64,
+                 top_k=2, moe_groups=1, param_dtype="float32",
+                 compute_dtype="float32")
+    cfg = _bumped(tserve.serve_config("mixtral-8x7b"))
+    rcfg = _bumped(ref_serve_config("mixtral-8x7b"))
+    t1 = {"cfg": cfg, "params": moe_params, "x": {}}
+    ref = {}
+    for B, S in W.T1_SHAPES:
+        x = np.random.default_rng(B).standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+        t1["x"][(B, S)] = torch.from_numpy(x)
+        ref[("t1", B, S)] = np.asarray(jl.moe(ref_moe_params,
+                                              jnp.asarray(x), rcfg))
+    rng = np.random.default_rng(0)
+    tp, (rcfg, jp, x) = _moe_case(
+        dict(_TINY, n_experts=6, capacity_factor=3.0), 2,
+        rng.standard_normal((2, 4, 32)).astype(np.float32))
+    ref["tp"] = np.asarray(jl._moe_local(jp, x.reshape(-1, 32), rcfg)
+                           ).reshape(x.shape)
+    # the reference's 2x2 case (tests/test_distributed.py:60-83)
+    data, (rcfg, jp, x) = _moe_case(
+        dict(_TINY, n_experts=8, capacity_factor=8.0), 1,
+        np.random.default_rng(0).standard_normal((4, 16, 32)
+                                                 ).astype(np.float32))
+    ref["data"] = np.asarray(jl._moe_local(jp, x.reshape(64, 32), rcfg)
+                             ).reshape(4, 16, 32)
+    return {"t1": t1, "tp": tp, "data": data}, ref
+
+
+def _layer0_moe(params):
+    """Layer 0's MoE weights of a layer-stacked params tree (port or
+    reference)."""
+    return {k: v[0] for k, v in params["stages"][0][0]["moe"].items()}
+
+
 def _prompts(arch, vocab, n=2):
     """The reference's prompts (tests/test_mesh_serve.py), seeded by a
     stable hash of the arch (its ``hash(arch)`` changes per process)."""
@@ -90,16 +167,28 @@ def _prompts(arch, vocab, n=2):
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    """Spawn the 1x2 and 1x4 groups, compute the reference's tokens while
-    they run, and gather each rank's results: ``(reference, {world:
-    [rank results] or the error})``."""
+    """Compute the reference's tokens, then spawn the 1x2 and 1x4 groups
+    and gather each rank's results: ``(reference, {world: [rank results]
+    or the error})``.  The reference runs first: XLA's threads on every
+    core beside six single-threaded ranks in lockstep collectives made
+    the ranks' run two to three times as long."""
     root = tmp_path_factory.mktemp("mesh")
     inputs = {}
     for arch in W.ARCHS:
         cfg, tp = _port(arch)
         inputs[arch] = {"cfg": cfg, "params": tp,
                         "prompts": _prompts(arch, cfg.vocab)}
+    ref_params = {arch: _reference_params(arch, inputs[arch]["params"])
+                  for arch in W.ARCHS}
+    inputs["moe"], ref_moe = _moe_inputs(
+        _layer0_moe(inputs["mixtral-8x7b"]["params"]),
+        _layer0_moe(ref_params["mixtral-8x7b"][1]))
     torch.save(inputs, root / "inputs.pt")
+    ref = {"moe": ref_moe}
+    for arch in W.ARCHS:
+        cfg, jp = ref_params[arch]
+        ref[arch] = {i: jax_greedy(cfg, jp, p, W.MAX_NEW)
+                     for i, p in enumerate(inputs[arch]["prompts"])}
     ctx = mp.get_context("spawn")
     procs = {}
     for world in WORLDS:
@@ -111,11 +200,6 @@ def spawned(tmp_path_factory):
             daemon=True) for r in range(world)]
         for p in procs[world]:
             p.start()
-    ref = {}
-    for arch in W.ARCHS:
-        cfg, jp = _reference_params(arch, inputs[arch]["params"])
-        ref[arch] = {i: jax_greedy(cfg, jp, p, W.MAX_NEW)
-                     for i, p in enumerate(inputs[arch]["prompts"])}
     deadline = time.monotonic() + JOIN_S
     results = {}
     for world, ps in procs.items():
@@ -167,6 +251,8 @@ def test_mesh_tokens_match_reference(spawned, world, arch, layout, k):
     assert run["placement"] == tuple(f"cpu:{r}" for r in range(world))
     calls = {kind: c["calls"] for kind, c in run["collectives"].items()}
     assert calls["all_reduce"] > 0 and calls["all_gather"] > 0, calls
+    # MoE layers dispatch expert-parallel (4 experts divide over 2 and 4)
+    assert (calls["all_to_all"] > 0) == (arch in W.MOE_ARCHS), calls
     if k == 8:
         assert run["trace"], "the traced run recorded no event"
 
@@ -253,7 +339,6 @@ def test_mesh_placement_is_a_block_property(spawned, world):
 
 @pytest.mark.parametrize("case,exc,item", [
     ("kernel", "ValueError", "kernel"),
-    ("moe", "NotImplementedError", "A14a-ii"),
     ("data", "NotImplementedError", "A14b"),
     ("auto", "NotImplementedError", "A15b")])
 @pytest.mark.parametrize("world", WORLDS)
@@ -261,6 +346,78 @@ def test_mesh_refusals(spawned, world, case, exc, item):
     for rank in _ranks(spawned, world):
         got = rank["refusals"][case]
         assert got[0] == exc and item in got[1], got
+
+
+def _calls(collectives):
+    return {kind: c["calls"] for kind, c in collectives.items()}
+
+
+@pytest.mark.parametrize("B,S", W.T1_SHAPES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_moe_ep_T1_matches_local(spawned, world, B, S):
+    """tests/test_mesh_serve.py::test_moe_ep_T1_matches_dense_bitexact on
+    the port: at one token per sequence under the engine's bump, cap >=
+    T_loc, and ``moe_ep`` on 1x2 and 1x4 gives the port's local ``moe``
+    bit for bit at B 2 and 4 (within ``MOE_TOL`` at B 1) and the
+    reference's within ``MOE_TOL``; S = 1 does not
+    split over ``model``, so the tokens stay whole on every rank and a
+    call makes two all-to-alls and nothing else."""
+    want = spawned[0]["moe"][("t1", B, S)]
+    for rank in _ranks(spawned, world):
+        got = rank["moe"][("t1", B, S)]
+        cap, t_loc = got["cap"]
+        assert t_loc == B and cap >= t_loc, got["cap"]
+        diff = float((got["ep"] - got["local"]).abs().max())
+        # bit-equal where both expert products have more than one row; at
+        # B = 1 the local path's one-row product takes another CPU GEMM
+        # path than EP's two rows (reading 1.79e-7 on 1x2 and 1x4)
+        assert diff == 0.0 if B > 1 else diff <= MOE_TOL, diff
+        np.testing.assert_allclose(got["ep"].numpy(), want, rtol=0,
+                                   atol=MOE_TOL)
+        assert _calls(got["collectives"]) == {
+            "all_reduce": 0, "all_gather": 0, "all_to_all": 2,
+            "broadcast": 0}
+        # every rank sends its whole [E, cap, d] buffer, twice
+        assert got["collectives"]["all_to_all"]["bytes"] == \
+            2 * 4 * cap * 64 * 4
+
+
+def test_moe_ep_tp_fallback(spawned):
+    """6 experts over a 4-wide ``model`` axis: experts replicated, d_ff
+    cut over ``model``, one all-reduce per call; the port's local MoE and
+    the reference's within ``MOE_TOL``."""
+    want = spawned[0]["moe"]["tp"]
+    for rank in _ranks(spawned, 4):
+        got = rank["moe"]["tp"]
+        np.testing.assert_allclose(got["ep"].numpy(), got["local"].numpy(),
+                                   rtol=0, atol=MOE_TOL)
+        np.testing.assert_allclose(got["ep"].numpy(), want, rtol=0,
+                                   atol=MOE_TOL)
+        assert _calls(got["collectives"]) == {
+            "all_reduce": 1, "all_gather": 0, "all_to_all": 0,
+            "broadcast": 0}
+
+
+def test_moe_ep_on_a_data_axis(spawned):
+    """The reference's 2x2 ``data x model`` case (E 8, K 2, x [4, 16,
+    32]) in the 4-rank group: each rank feeds its ``data`` block and gets
+    it back within the reference's 2e-5 of the largest output of the
+    reference's ``_moe_local``; its tokens split over ``model`` (S 16), so
+    a call makes two all-to-alls and one all-gather over ``model``."""
+    want = spawned[0]["moe"]["data"]
+    seen = set()
+    for rank in _ranks(spawned, 4):
+        got = rank["moe"]["data"]
+        d = got["coords"]["data"]
+        seen.add((d, got["coords"]["model"]))
+        ref = want[2 * d:2 * d + 2]
+        err = np.abs(got["ep"].numpy() - ref).max() / (np.abs(want).max()
+                                                       + 1e-9)
+        assert err < DATA_REL_TOL, err
+        assert _calls(got["collectives"]) == {
+            "all_reduce": 0, "all_gather": 1, "all_to_all": 2,
+            "broadcast": 0}
+    assert seen == {(0, 0), (0, 1), (1, 0), (1, 1)}
 
 
 @pytest.mark.parametrize("topology", ("unified", "disagg"))
@@ -385,6 +542,60 @@ def test_host_mesh_needs_its_processes():
         make_host_mesh(1, 2)
     with pytest.raises(NotImplementedError, match="A14b"):
         make_production_mesh()
-    cfg, params = _port("mixtral-8x7b")
-    with pytest.raises(NotImplementedError, match="A14a-ii"):
-        W._engine(cfg, params, make_host_mesh(1, 1, device="cpu"))
+
+
+def test_q8_refused_on_a_wide_model_axis():
+    """int8 (q8) weights on a ``model`` axis wider than 1 are refused,
+    naming ROADMAP.md § A15b (a 1x2 rank built without a process group:
+    the refusal comes before any collective)."""
+    from repro_torch.models.quantized import quantize_serving_params
+    cfg, tp = _port("qwen3-0.6b")
+    with pytest.raises(NotImplementedError, match="A15b"):
+        W._engine(cfg, quantize_serving_params(tp), Mesh(1, 2, "cpu"),
+                  "shard")
+
+
+def test_moe_ep_on_one_device():
+    """``moe_ep`` on a 1x1 mesh: the local dispatch in one group, no
+    collective, the port's local ``moe`` bit for bit (one-token groups
+    there, one group here); ``moe`` under the mesh's ``logical_axes``
+    routes there, with and without ``moe_legacy_dispatch``."""
+    from repro_torch.distributed.axes import logical_axes
+    cfg, tp = _port("mixtral-8x7b")
+    cfg, mp = _bumped(cfg), _layer0_moe(tp)
+    old = dataclasses.replace(cfg, moe_legacy_dispatch=True)
+    mesh = make_host_mesh(1, 1, device="cpu")
+    for B, S in W.T1_SHAPES + ((2, 8),):
+        x = torch.from_numpy(np.random.default_rng(B).standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32))
+        assert ep_capacity(cfg, mesh, B, S) == (B * S, B * S)
+        want = moe(mp, x, cfg)
+        assert torch.equal(moe_ep(mp, x, cfg, mesh), want)
+        with logical_axes(mesh, cfg.n_experts):
+            assert torch.equal(moe(mp, x, cfg), want)
+            assert torch.equal(moe(mp, x, old), want)
+    assert all(c["calls"] == 0 for c in mesh.collectives.values())
+
+
+@pytest.mark.parametrize("arch", W.MOE_ARCHS)
+def test_mesh_engine_capacity_bump(arch):
+    """On any mesh, 1x1 included, the engine raises capacity_factor to
+    E/K before it builds anything, as the reference engine does, and
+    serves with it: the 1x1 engine's tokens equal the reference's greedy
+    decode; without a mesh the config is left as it is."""
+    cfg, tp = _port(arch)
+    rcfg, jp = _reference_params(arch, tp)
+    want = max(cfg.capacity_factor, cfg.n_experts / cfg.top_k)
+    assert want > cfg.capacity_factor
+    mesh = make_host_mesh(1, 1, device="cpu")
+    eng = W._engine(cfg, tp, mesh)
+    ref = RefEngine(rcfg, jp, n_pages=9, page_size=8, max_seqs=1,
+                    mesh=ref_host_mesh(1, 1), kv_layout="shard")
+    assert eng.cfg.capacity_factor == ref.cfg.capacity_factor == want
+    assert W._engine(cfg, tp).cfg.capacity_factor == cfg.capacity_factor
+    cap, t_loc = ep_capacity(eng.cfg, mesh, eng.max_seqs, 1)
+    assert cap >= t_loc == eng.max_seqs
+    prompts = _prompts(arch, cfg.vocab)
+    out, _ = W._serve(eng, prompts, W.MAX_NEW, 8)
+    assert out == {i: jax_greedy(rcfg, jp, p, W.MAX_NEW)
+                   for i, p in enumerate(prompts)}
