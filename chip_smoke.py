@@ -127,13 +127,25 @@ Phases (any failure exits non-zero and prints no result line):
               internvl2 one of 4 microbatches, its loss the mean of
               ``lm_loss`` over them, through the vision slice), the
               params moving.  Each model is freed before the next; the
-              checkpoints live under ``build/train`` and are removed;
+              checkpoints live under ``build/train``; 4j removes them;
+ 4j. train-mesh — training on a 1x1 device mesh: qwen3-0.6b at its
+              published config through ``launch.train.main`` with
+              ``--mesh host`` (state specs, ``shard_state``, the SPMD
+              step under ``logical_axes``), 5 steps of 8 x 128: losses,
+              grad norms, params, m, v and step bit-equal to 5 unmeshed
+              ``make_train_step`` steps from the same seed and batches;
+              ``mesh.collectives`` all zero; one mesh step under
+              ``set_sync_debug_mode("error")``; both routes' host ms a
+              step in turns; 4g's step-10 checkpoint restored through the
+              mesh's shardings equal to the plain restore; one step with
+              the EF compressor finite and sync-free; no paged-attention
+              launch.  It runs after 4g, before 4h;
  4h. mesh   — phase 4's requests on a 1x1 device mesh through the
               launcher (``--mesh-shape 1x1 --kv-layout shard``: the
               kernel engine on ``make_host_mesh(1, 1)``): tokens equal to
               phase 4's, launches 28 x token steps, no collective; one
               horizon under ``set_sync_debug_mode("error")``; a horizon's
-              host ms beside phase 4's.  It runs after 4g, before 4i;
+              host ms beside phase 4's.  It runs after 4j, before 4i;
  4i. legacy — phase 4's requests through the launcher's per-sequence path
               (``--legacy``: ``serve/paged.py::PagedServer``, attention
               through ``paged_decode_attention`` on the kernel): tokens
@@ -871,8 +883,9 @@ def phase_prefix(torch, pa, card):
     """Phase 4c: full-width qwen3-0.6b served three times on the same
     weights (seed 0) with a shared 252-token system prompt — cache off,
     cache on, cache on with overlap — each request against the plain
-    greedy decode of its whole prompt, launches 28 x token steps, the three
-    serves' tokens identical, the cache's hits, reuse and COW clones as the
+    greedy decode of its whole prompt (taken once, in the first serve:
+    the three serves' tokens are then held identical), launches 28 x
+    token steps, the cache's hits, reuse and COW clones as the
     schedule makes them, the host mirror exact and the pool drained; then
     a horizon over shared and COW pages and the overlap's staged half
     under ``set_sync_debug_mode("error")``; then one decode tick timed,
@@ -887,8 +900,9 @@ def phase_prefix(torch, pa, card):
             box["out"] = serve.main(PREFIX_ARGV + extra)
             return box["out"]
         t0 = time.perf_counter()
-        launches[mode], engine = phase_serve(torch, pa, card, run,
-                                             f"prefix {mode}")
+        launches[mode], engine = phase_serve(
+            torch, pa, card, run, f"prefix {mode}",
+            reference=mode == PREFIX_MODES[0][0])
         finished, sched = box["out"][0], box["out"][2]
         alloc, cache = engine.alloc, sched.prefix_cache
         outs[mode] = {r.rid: r.out for r in finished}
@@ -2297,7 +2311,8 @@ def phase_train_launcher(torch, pa, card):
               f"{idle * 100:.1f}%; top: {top}")
     del state2, loop2
     _free(torch)
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    # the step-10 checkpoint stays under TRAIN_DIR / "resume" for phase
+    # 4j's sharded restore, which removes TRAIN_DIR
     return {"step_ms": step_ms, "tokens_per_s": tok_s, "busy_ms": busy_ms,
             "profiled_step_ms": prof_ms, "idle": idle, "peak_bytes": peak,
             "loss_first": losses[0], "loss_last": losses[-1],
@@ -2489,6 +2504,208 @@ def phase_train(torch, pa, card, dev):
     return res
 
 
+# -- phase 4j: training on a 1x1 device mesh --------------------------------
+TRAIN_MESH_DIR = Path(__file__).resolve().parent / "build" / "train_mesh"
+TRAIN_MESH_STEPS, TRAIN_MESH_TURNS = 5, 6
+TRAIN_MESH_ARGV = ["--arch", "qwen3-0.6b", "--no-smoke", "--mesh", "host",
+                   "--steps", str(TRAIN_MESH_STEPS), "--batch", str(TRAIN_B),
+                   "--seq", str(TRAIN_S), "--device", "cuda"]
+
+
+def _bit_equal(torch, a, b):
+    """Whether two trees' leaves are equal, shape, dtype and bits."""
+    from repro_torch.tree import leaves
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(leaves(a), leaves(b), strict=True))
+
+
+def phase_train_mesh(torch, pa, card, dev):
+    """Phase 4j: ``launch.train.main(["--mesh", "host", ...])`` on the
+    published qwen3-0.6b, 5 steps of 8 x 128: its losses, grad norms and
+    params bit-equal to 5 unmeshed ``make_train_step`` steps from the same
+    seed and batches, no collective, one mesh step under
+    ``set_sync_debug_mode("error")``, both routes' host ms a step in
+    turns, phase 4g's step-10 checkpoint restored through the 1x1 mesh's
+    shardings equal to the plain restore, one step with the EF compressor
+    finite and sync-free.  Every mesh step must enter the SPMD step (its
+    ``spmd_train`` scope, counted here) and no plain step may.  The
+    paged-attention kernel is not on this path: its count, set to 0 here,
+    must still be 0.  Returns the numbers of the ``[train-mesh]`` line."""
+    import dataclasses
+
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.device import stage
+    from repro_torch.distributed.axes import logical_axes
+    from repro_torch.distributed.compression import make_ef_compressor
+    from repro_torch.distributed.sharding import (param_specs, shardings_of,
+                                                  state_specs)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    spmd, spmd_train = [0], step_mod.spmd_train
+
+    def counted_spmd(m):
+        spmd[0] += 1
+        return spmd_train(m)
+    step_mod.spmd_train = counted_spmd
+    pa.launches = 0
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    log = TRAIN_MESH_DIR / "run.jsonl"
+    t0 = time.perf_counter()
+    state, end, losses, loop = launch_train.main(
+        TRAIN_MESH_ARGV + ["--ckpt-dir", str(TRAIN_MESH_DIR / "ckpt"),
+                           "--ckpt-every", str(TRAIN_MESH_STEPS),
+                           "--log", str(log)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mesh = loop.mesh
+    if end != TRAIN_MESH_STEPS or mesh is None or mesh.size != 1:
+        _fail(f"[train-mesh] the launcher ended at step {end} on {mesh}")
+    if spmd[0] != TRAIN_MESH_STEPS:
+        _fail(f"[train-mesh] {spmd[0]} of the launcher's "
+              f"{TRAIN_MESH_STEPS} steps went through the SPMD step")
+    gnorms = [json.loads(line)["grad_norm"]
+              for line in log.read_text().splitlines()]
+    served = {k: dict(v) for k, v in mesh.collectives.items()}
+
+    # the same steps unmeshed, as the launcher's config and optimizer
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), grad_accum=1)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=max(TRAIN_MESH_STEPS // 10, 1))
+    data = SyntheticLMData(cfg, TRAIN_B, TRAIN_S, seed=0)
+    plain = init_train_state(cfg, opt, 0, dev)
+    step = make_train_step(cfg, opt)
+    p_losses, p_gnorms = [], []
+    for i in range(TRAIN_MESH_STEPS):
+        plain, m = step(plain, {k: stage(v, dev)
+                                for k, v in data.batch_at(i).items()})
+        p_losses.append(float(m["loss"]))
+        p_gnorms.append(float(m["grad_norm"]))
+    equal = {"losses": [float(x) for x in losses] == p_losses,
+             "grad_norms": gnorms == p_gnorms,
+             "params": _bit_equal(torch, state["params"], plain["params"]),
+             "opt": _bit_equal(torch, state["opt"], plain["opt"])}
+    if not all(equal.values()):
+        _fail(f"[train-mesh] the 1x1 mesh run is not bit-equal to the "
+              f"unmeshed steps: {equal}; losses {list(losses)} vs "
+              f"{p_losses}; grad norms {gnorms} vs {p_gnorms}")
+
+    batch = data.batch_at(TRAIN_MESH_STEPS)
+
+    def mesh_step():
+        with logical_axes(mesh, n_experts=cfg.n_experts):
+            return loop.train_step(state, batch)
+
+    def plain_step():
+        return step(plain, {k: stage(v, dev) for k, v in batch.items()})
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, m = mesh_step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not math.isfinite(float(m["loss"])):
+        _fail("[train-mesh] the sync-checked step's loss is not finite")
+    print("[sync] train-mesh: one launcher step of qwen3-0.6b on the 1x1 "
+          "mesh under set_sync_debug_mode('error'): no host sync")
+    # each step timed whole: from an idle card to the end of its AdamW
+    # (a loss read alone would stop the clock with the backward queued)
+    turns = {"plain": [], "mesh": []}
+    for _ in range(TRAIN_MESH_TURNS):
+        for name, fn in (("plain", plain_step), ("mesh", mesh_step),
+                         ("mesh", mesh_step), ("plain", plain_step)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t1) * 1e3)
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    if any(c["calls"] or c["bytes"] for c in mesh.collectives.values()):
+        _fail(f"[train-mesh] a 1x1 mesh made collectives: "
+              f"{mesh.collectives}")
+
+    # phase 4g's step-10 checkpoint through the mesh's shardings
+    del plain
+    _free(torch)
+    ckpt = TRAIN_DIR / "resume"
+    if not (ckpt / f"step_{TRAIN_EVERY}").is_dir():
+        _fail(f"[train-mesh] phase 4g left no step-{TRAIN_EVERY} "
+              f"checkpoint under {ckpt}")
+    st_sh = shardings_of(state_specs(cfg, state, mesh), mesh)
+    t1 = time.perf_counter()
+    sharded = restore_pytree(state, ckpt, TRAIN_EVERY, shardings=st_sh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    same = _bit_equal(torch, sharded,
+                      restore_pytree(state, ckpt, TRAIN_EVERY))
+    if not same or int(sharded["opt"]["step"]) != TRAIN_EVERY:
+        _fail("[train-mesh] the sharded restore of phase 4g's checkpoint "
+              "differs from the plain restore")
+    del sharded
+    _free(torch)
+
+    # one step with the EF compressor on the mesh's shardings
+    compress, init = make_ef_compressor(shardings=shardings_of(
+        param_specs(cfg, state["params"], mesh), mesh))
+    ef = init(state["params"])
+    c_step = make_train_step(cfg, opt, compress=lambda g: compress(g, ef)[0])
+    staged = {k: stage(v, dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with logical_axes(mesh, n_experts=cfg.n_experts):
+            _, m = c_step(state, staged)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    c_loss = float(m["loss"])
+    if not math.isfinite(c_loss) or pa.launches != 0:
+        _fail(f"[train-mesh] the compressed step's loss {c_loss}; "
+              f"paged-attention launches {pa.launches}")
+    step_mod.spmd_train = spmd_train
+    # the launcher's steps, the sync-checked one, the timed mesh steps and
+    # the compressed one; the plain steps none
+    want_spmd = TRAIN_MESH_STEPS + 2 * TRAIN_MESH_TURNS + 2
+    if spmd[0] != want_spmd:
+        _fail(f"[train-mesh] {spmd[0]} steps went through the SPMD step, "
+              f"want {want_spmd}")
+    print("[sync] train-mesh: one EF-compressed step on the 1x1 mesh under "
+          "set_sync_debug_mode('error'): no host sync")
+    n_params = sum(t.numel() for t in leaves(state["params"]))
+    del state, loop, ef
+    _free(torch)
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    res = {"steps": TRAIN_MESH_STEPS, "bit_equal": equal,
+           "losses": p_losses, "grad_norms": p_gnorms,
+           "collectives": served, "host_ms_turns": turns,
+           "host_ms_median": med, "mesh_over_plain": med["mesh"]
+           / med["plain"], "restore_s": restore_s,
+           "restore_equal": same, "compressed_loss": c_loss,
+           "paged_attention_launches": pa.launches, "launcher_wall_s": wall,
+           "spmd_steps": spmd[0], "n_params": n_params}
+    print(f"[train-mesh] {card}: qwen3-0.6b ({n_params} params) through "
+          f"launch.train --mesh host, {TRAIN_MESH_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_S} in {wall:.1f} s wall (init and the final "
+          f"checkpoint included): losses, grad norms, params, m, v and "
+          f"step bit-equal to the unmeshed make_train_step; {spmd[0]} "
+          f"mesh steps through the SPMD step, no plain one; collectives "
+          f"{served}; host ms a step (idle card to synchronize) in turns "
+          f"(plain, mesh, mesh, plain) x "
+          f"{TRAIN_MESH_TURNS}: medians plain {med['plain']:.3f}, mesh "
+          f"{med['mesh']:.3f}, mesh / plain "
+          f"{med['mesh'] / med['plain']:.4f}; phase 4g's step-"
+          f"{TRAIN_EVERY} checkpoint restored through the mesh's shardings "
+          f"in {restore_s:.2f} s, equal to the plain restore; EF-compressed "
+          f"step loss {c_loss:.4f}; paged-attention launches {pa.launches}")
+    print(f"[train-mesh] {json.dumps({'train_mesh': res})}")
+    return res
+
+
 def phase_ring_kernel(torch, F, pa, ops, batched, dev):
     """The kernel on ring-table rows (static, contiguous: slot s reads
     pages 1 + s * ring_pages ..) at the ring pool's three shapes, lengths
@@ -2596,7 +2813,8 @@ def phase_ring_wrap(torch, pa, card, cfg, params):
     t1 = time.perf_counter()
     n, gap = _reference_tokens(torch, tm, cfg, params, req, dev)
     tail = ("" if gap is None else f" (stopped at a tie, gap {gap:.3e})")
-    print(f"[hetero] {card}: ring wrap {cfg.name}: {WRAP_PROMPT} prompt + "
+    print(f"[hetero] {card}: ring wrap {cfg.name} ({cfg.n_layers} layers: "
+          f"{geom.n_ring} ring, {geom.n_full} full): {WRAP_PROMPT} prompt + "
           f"{WRAP_NEW} new tokens (positions {WRAP_PROMPT}..{lifetime - 2} "
           f"decoded across the window of {geom.window}), {steps} token "
           f"steps in {wall:.3f} s wall ({wall / steps * 1e3:.2f} ms per "
@@ -3631,6 +3849,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train(torch, pa, card, dev)
     print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
+    phase_train_mesh(torch, pa, card, dev)
+    print(f"[train-mesh] phase took {time.perf_counter() - t0:.1f} s")
 
     _free(torch)
     t0 = time.perf_counter()

@@ -26,8 +26,16 @@ reference renders a leaf path (``repro_torch/tree.py``).
 
 A dtype numpy lacks (``bfloat16``) is stored widened to float32, which
 holds it exactly; :func:`restore_pytree` casts back to the template's
-dtype.  Restoring onto a device mesh (``shardings=``) is ROADMAP.md
-§ A14b.
+dtype.
+
+* **Elastic**: a state sharded on a device mesh (``shardings=``, a tree
+  of ``distributed.sharding.Sharding``) is saved whole: every rank
+  gathers each leaf, rank 0 writes, and a barrier follows the final
+  rename, so every rank's :func:`latest_step` sees the step — a save is
+  a collective, made at the same step by every rank.  ``restore_pytree``
+  with ``shardings=`` loads whole leaves on the host and copies this
+  rank's block to its device, so a checkpoint of one mesh restores onto
+  any other, onto no mesh, and into the reference's ``restore_pytree``.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tree import leaves_with_path, map_with_path
+from ..tree import leaves, leaves_with_path, map_with_path
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -63,17 +71,47 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
+def _mesh_of(shardings):
+    """The mesh of a ``Sharding`` tree when it is wider than one device."""
+    if shardings is None:
+        return None
+    mesh = leaves(shardings)[0].mesh
+    return mesh if mesh.size > 1 else None
+
+
 def save_pytree(tree, directory: str | Path, step: int,
-                blocking: bool = True) -> threading.Thread:
-    """Save; returns the writer thread (join it or let the manager track)."""
+                blocking: bool = True, shardings=None) -> threading.Thread:
+    """Save; returns the writer thread (join it or let the manager track).
+    With ``shardings`` on a mesh wider than one device ``tree`` is this
+    rank's blocks: the save is a blocking collective (module doc)."""
     directory = Path(directory)
+    mesh = _mesh_of(shardings)
+    if mesh is not None:
+        host_leaves = [(k, _to_host(sh.whole(v))) for (k, v), sh in zip(
+            leaves_with_path(tree), leaves(shardings), strict=True)]
+        t = (_writer(host_leaves, directory, step) if mesh.rank == 0
+             else threading.Thread(target=lambda: None))
+        t.start()
+        t.join()
+        mesh.barrier()
+        return t
+    host_leaves = [(k, _to_host(v)) for k, v in leaves_with_path(tree)]
+    t = _writer(host_leaves, directory, step)
+    t.start()
+    if blocking:
+        t.join()
+    return t
+
+
+def _writer(host_leaves, directory: Path, step: int) -> threading.Thread:
+    """The (unstarted) thread that writes ``host_leaves`` as step
+    ``step`` of ``directory``."""
     directory.mkdir(parents=True, exist_ok=True)
     tmp = directory / f"step_{step}.tmp"
     final = directory / f"step_{step}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-    host_leaves = [(k, _to_host(v)) for k, v in leaves_with_path(tree)]
 
     def _write():
         manifest = {"step": step, "leaves": []}
@@ -93,11 +131,7 @@ def save_pytree(tree, directory: str | Path, step: int,
             shutil.rmtree(final)
         os.replace(tmp, final)
 
-    t = threading.Thread(target=_write, daemon=True)
-    t.start()
-    if blocking:
-        t.join()
-    return t
+    return threading.Thread(target=_write, daemon=True)
 
 
 def _validate_step(directory: Path) -> Optional[str]:
@@ -170,43 +204,55 @@ def restore_pytree(template, directory: str | Path, step: int,
                    shardings=None) -> Any:
     """Restore into the structure of ``template``: a tensor leaf comes back
     as a tensor of the template leaf's dtype on its device, any other leaf
-    as a numpy array of its dtype.  Raises :class:`CheckpointCorruptError`
-    — naming the damaged file — if the requested step is partial/corrupt,
-    so callers can fall back to ``latest_step`` (which already skips
-    damaged steps)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a device mesh (shardings=) is not ported yet "
-            "(ROADMAP.md § A14b)")
+    as a numpy array of its dtype.  With ``shardings`` (a ``Sharding``
+    tree of the template's nesting) each template leaf is this rank's
+    block: the whole leaf is loaded on the host and this rank's block
+    copied to fresh storage (any mesh, whatever the saving mesh was).
+    Raises :class:`CheckpointCorruptError` — naming the damaged file — if
+    the requested step is partial/corrupt, so callers can fall back to
+    ``latest_step`` (which already skips damaged steps)."""
     step_dir, manifest = _manifest(directory, step)
     by_key = {e["key"]: e for e in manifest["leaves"]}
+    blocks = (None if shardings is None else
+              {k: sh for k, sh in leaves_with_path(shardings)})
 
     def load(key, leaf):
-        arr = np.load(step_dir / by_key[key]["file"])
+        t = torch.from_numpy(np.load(step_dir / by_key[key]["file"]))
+        if blocks is not None:
+            t = blocks[key].local(t)
         shape = tuple(np.shape(leaf))
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} "
-                             f"vs {shape}")
-        if isinstance(leaf, torch.Tensor):
-            return torch.from_numpy(arr).to(device=leaf.device,
-                                            dtype=leaf.dtype)
-        return arr.astype(np.asarray(leaf).dtype)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(t.shape)} vs {shape}")
+        if not isinstance(leaf, torch.Tensor):
+            return t.numpy().astype(np.asarray(leaf).dtype)
+        if blocks is not None:            # a fresh block, not a view
+            return torch.empty(shape, dtype=leaf.dtype,
+                               device=leaf.device).copy_(t)
+        return t.to(device=leaf.device, dtype=leaf.dtype)
 
     return map_with_path(load, template)
 
 
 class CheckpointManager:
-    """Retention + async tracking + resume."""
+    """Retention + async tracking + resume.  With ``shardings`` (the
+    state's ``Sharding`` tree on a mesh wider than one device) every save
+    is the collective of :func:`save_pytree` and rank 0 alone prunes."""
 
-    def __init__(self, directory: str | Path, keep: int = 3):
+    def __init__(self, directory: str | Path, keep: int = 3,
+                 shardings=None):
         self.dir = Path(directory)
         self.keep = keep
+        self.shardings = shardings
         self._pending: Optional[threading.Thread] = None
 
     def save(self, tree, step: int, blocking: bool = False) -> None:
         self.wait()
-        self._pending = save_pytree(tree, self.dir, step, blocking=blocking)
-        self._gc()
+        self._pending = save_pytree(tree, self.dir, step, blocking=blocking,
+                                    shardings=self.shardings)
+        mesh = _mesh_of(self.shardings)
+        if mesh is None or mesh.rank == 0:
+            self._gc()
 
     def wait(self) -> None:
         if self._pending is not None:

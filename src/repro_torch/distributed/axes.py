@@ -12,14 +12,19 @@ or this rank's block of one dim, and :func:`constrain` *gathers* (or, for
 the free direction, slices) ``x`` into the named layout: a named dim whose
 axis divides its whole size ends as this rank's block, every other dim
 ends whole.  Gathers are collectives of the mesh and are counted there.
-Only the ``model`` axis carries blocks on the serve path (a ``data`` axis
-wider than 1 is refused there), so a block is always a ``model`` block.
+Only the ``model`` axis carries activation blocks (a ``data`` axis wider
+than 1 is refused in serving, and the train step cuts its batch itself),
+so a block is always a ``model`` block.
 
 The tensor-parallel helpers below (:func:`to_whole`, :func:`to_block`,
 :func:`model_sum`) are the step's forms of the same rule, and
 ``models/tp.py`` builds the row-parallel product and the vocab-sharded
 lookup on them; under no scope, or on a 1-wide ``model`` axis, each is
-the plain op it replaces.  This module imports nothing of ``models/``.
+the plain op it replaces.  They are the serve path's in-place forms; the
+train step runs the model's forward under :func:`spmd_train`, and there
+``models/tp.py`` takes the autograd forms of ``launch/mesh.py`` instead
+(:func:`train_mesh` says which).  This module imports nothing of
+``models/``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,29 @@ import torch
 
 _AXES: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
     "logical_axes", default=None)
+_TRAIN: contextvars.ContextVar[Optional[object]] = contextvars.ContextVar(
+    "spmd_train", default=None)
+
+
+@contextlib.contextmanager
+def spmd_train(mesh):
+    """The train step's scope: inside it a mesh wider than one device
+    makes :func:`train_mesh` return it, and the model's forward takes its
+    blocked, differentiable forms; ``mesh`` None (or one device) leaves
+    the plain forms.  A remat'd layer re-enters it with the mesh it was
+    run with, since its replay may run on autograd's device thread, which
+    sees no context of the caller's."""
+    tok = _TRAIN.set(mesh if mesh is not None and mesh.size > 1 else None)
+    try:
+        yield
+    finally:
+        _TRAIN.reset(tok)
+
+
+def train_mesh():
+    """The mesh the train step runs on when it is wider than one device,
+    else None (outside :func:`spmd_train`, too)."""
+    return _TRAIN.get()
 
 
 @contextlib.contextmanager
@@ -109,8 +137,9 @@ def constrain(x: torch.Tensor, *dims: Optional[str],
         if wide and whole[i] > 0 and whole[i] % n == 0:
             if wide != ["model"]:
                 raise NotImplementedError(
-                    f"blocks over {wide}: only the 'model' axis is sharded "
-                    f"on the serve path (ROADMAP.md § A14b)")
+                    f"activation blocks over {wide}: only the 'model' axis "
+                    f"cuts activations (the serve 'data' axis is ROADMAP.md "
+                    f"§ A14b-ii)")
             x = _slice(x, i, whole[i], n, mesh.coords["model"])
         else:
             x = _gather(x, i, whole[i], mesh)

@@ -76,7 +76,7 @@ def moe_ep(params, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
     (``[E / n, d, f]`` under EP, ``[E, d, f / n]`` and ``[E, f / n, d]``
     under the TP fallback) or whole, and then this rank takes its blocks
     (views).  The FSDP cut of ``d`` over ``data`` comes with training on
-    a mesh (ROADMAP.md § A14b) and is refused."""
+    a mesh (ROADMAP.md § A14b-ii) and is refused."""
     E, K = cfg.n_experts, cfg.top_k
     B, S, d = x.shape
     n_b, n_m, ep, tok_over_model = _ep_layout(cfg, mesh, S)
@@ -86,7 +86,7 @@ def moe_ep(params, x: torch.Tensor, cfg, mesh) -> torch.Tensor:
     if w1.shape[1] != d or w2.shape[2] != d:
         raise ValueError(f"expert weights {tuple(w1.shape)} / "
                          f"{tuple(w2.shape)} are cut over d_model {d}: "
-                         f"FSDP over 'data' comes with ROADMAP.md § A14b")
+                         f"FSDP over 'data' comes with ROADMAP.md § A14b-ii")
     if not ep and n_m > 1 and f % n_m:
         raise ValueError(f"the TP fallback cuts d_ff {f} over 'model' "
                          f"{n_m}, which does not divide it")

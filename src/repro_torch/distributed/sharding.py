@@ -1,6 +1,7 @@
-"""Sharding rules, the serve half (counterpart of
-``repro/distributed/sharding.py``): TP over ``model`` for params, pools
-sharded over ``model`` for the paged serve state.
+"""Sharding rules (counterpart of ``repro/distributed/sharding.py``):
+DP/FSDP over ``data`` (+ ``pod``) and TP over ``model`` for params, grads
+and optimizer moments; the batch over the batch axes; pools sharded over
+``model`` for the paged serve state.
 
 The rules are the reference's, copied: params FSDP-shard their
 d_model-like dim over 'data' and their heads/ff/vocab dim over 'model',
@@ -12,9 +13,10 @@ axis name, a tuple of axis names or None (the reference's
 a mesh and cuts or gathers a tensor's blocks: in the port's SPMD form a
 rank holds only its block of every sharded leaf.
 
-The train half (``state_specs``, ``batch_spec``) comes with training on a
-mesh (ROADMAP.md § A14b).  ``placement_hint`` maps VBI property bits to
-placement preferences (the data-aware hook, DESIGN.md §2).
+``state_specs`` and ``batch_spec`` are the train half, and
+:func:`shard_state` cuts a whole train state into one rank's blocks.
+``placement_hint`` maps VBI property bits to placement preferences (the
+data-aware hook, DESIGN.md §2).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import dataclasses
 import math
 from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.vbi.address_space import VBProps
@@ -108,10 +111,7 @@ def param_specs(cfg: ModelConfig, params_shape, mesh):
     """Spec tree for a params-shaped tree (grads and optimizer moments
     too): the reference's ``param_specs``."""
     ep = cfg.n_experts > 0 and _divisible(cfg.n_experts, mesh, "model")
-    fsdp: object = "data"
-    if getattr(cfg, "fsdp_axes", "data") == "pod_data" \
-            and "pod" in mesh.axis_names:
-        fsdp = ("pod", "data")
+    fsdp = fsdp_axes_of(cfg, mesh)
 
     def _axis_total(ax):
         axes = ax if isinstance(ax, tuple) else (ax,)
@@ -162,6 +162,58 @@ def param_specs(cfg: ModelConfig, params_shape, mesh):
         return Spec(*((None,) * (nd - len(rule))), *fixed)
 
     return _map_named(spec_for, params_shape)
+
+
+def fsdp_axes_of(cfg: ModelConfig, mesh):
+    """The axes ``param_specs`` FSDP-cuts a d_model-like dim over:
+    ``("pod", "data")`` under ``fsdp_axes == "pod_data"`` on a mesh with
+    ``pod``, else ``"data"``."""
+    if getattr(cfg, "fsdp_axes", "data") == "pod_data" \
+            and "pod" in mesh.axis_names:
+        return ("pod", "data")
+    return "data"
+
+
+def fsdp_dim(name: str, nd: int) -> Optional[int]:
+    """The dim of an ``nd``-dim leaf named ``name`` (a dense or attention
+    weight) that ``param_specs`` FSDP-cuts, or None: its rule's ``data``
+    position."""
+    rule = _RULES.get(name)
+    if rule is None or "data" not in rule or nd < len(rule):
+        return None
+    return nd - len(rule) + rule.index("data")
+
+
+def state_specs(cfg: ModelConfig, state_shape, mesh):
+    """Train-state tree ``{'params', 'opt': {'m', 'v', 'step'}}``: the
+    reference's ``state_specs``."""
+    return {
+        "params": param_specs(cfg, state_shape["params"], mesh),
+        "opt": {
+            "m": param_specs(cfg, state_shape["opt"]["m"], mesh),
+            "v": param_specs(cfg, state_shape["opt"]["v"], mesh),
+            "step": Spec(),
+        },
+    }
+
+
+def batch_spec(cfg: ModelConfig, batch_shape, mesh):
+    """A batch's leaves ``[B, ...]``: dim 0 over the batch axes when their
+    product divides ``B`` and exceeds 1, else whole (the reference's
+    ``batch_spec``)."""
+    baxes = batch_axes_for(mesh)
+    n_b = math.prod(_axis_size(mesh, a) for a in baxes)
+
+    def spec_for(names, leaf) -> Spec:
+        nd = len(leaf.shape)
+        if nd == 0:
+            return Spec()
+        first = baxes if (leaf.shape[0] % n_b == 0 and n_b > 1) else None
+        if isinstance(first, tuple) and len(first) == 1:
+            first = first[0]
+        return Spec(first, *((None,) * (nd - 1)))
+
+    return _map_named(spec_for, batch_shape)
 
 
 def cache_specs(cfg: ModelConfig, cache_shape, mesh, batch: int):
@@ -257,9 +309,15 @@ class Sharding:
 
     @property
     def dim(self) -> Optional[int]:
-        """The one dim cut over ``model`` (None for a whole leaf)."""
+        """The first cut dim (None for a whole leaf); on the serve path
+        the one dim cut over ``model``."""
         b = self.blocks()
         return b[0][0] if b else None
+
+    def axes(self) -> Tuple[str, ...]:
+        """Every mesh axis some dim of the leaf is cut over (wide ones)."""
+        return tuple(a for _, axes, _, _ in self.blocks() for a in axes
+                     if _axis_size(self.mesh, a) > 1)
 
     def local(self, t: torch.Tensor, drop: int = 0) -> torch.Tensor:
         """This rank's block of the whole ``t`` (a view); ``drop`` leading
@@ -273,14 +331,11 @@ class Sharding:
         return t
 
     def whole(self, t: torch.Tensor, drop: int = 0) -> torch.Tensor:
-        """The whole leaf from every rank's block ``t`` (an all-gather per
-        cut dim); ``drop`` as in :meth:`local`."""
+        """The whole leaf from every rank's block ``t``: one all-gather
+        per cut dim, over that dim's axes together (``model``, ``data``,
+        or ``("pod", "data")``); ``drop`` as in :meth:`local`."""
         for i, axes, _, _ in self.blocks():
-            wide = [a for a in axes if _axis_size(self.mesh, a) > 1]
-            if len(wide) != 1:
-                raise NotImplementedError(
-                    f"gathering over {wide} (ROADMAP.md § A14b)")
-            t = self.mesh.all_gather(t, i - drop, axis=wide[0])
+            t = self.mesh.all_gather(t, i - drop, axis=axes)
         return t
 
 
@@ -349,3 +404,20 @@ def _cut(tree, shardings, dev):
         return tree.to(dev)
     blk = shardings.local(tree)
     return torch.empty(blk.shape, dtype=blk.dtype, device=dev).copy_(blk)
+
+
+def shard_state(cfg: ModelConfig, state, mesh, device=None):
+    """This rank's blocks of a whole train state ``{'params', 'opt'}``
+    (numpy arrays or tensors, on the host or not) by ``state_specs``, on
+    ``device`` (default: where ``params['embed']`` lives).  A cut leaf is
+    a fresh contiguous copy of its block, never a view of the whole leaf;
+    a whole numpy leaf is copied, a whole tensor is moved (or stays the
+    same tensor, as in :func:`shard_params`)."""
+    embed = state["params"]["embed"]
+    dev = (torch.device(device) if device is not None else
+           embed.device if isinstance(embed, torch.Tensor) else
+           torch.device("cpu"))
+    host = _map_named(lambda _, x: x if isinstance(x, torch.Tensor)
+                      else torch.tensor(np.asarray(x)), state)
+    return _cut(host, shardings_of(state_specs(cfg, state, mesh), mesh),
+                dev)

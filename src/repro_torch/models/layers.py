@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .quantized import promoted, qmm
-from .tp import row_parallel
+from .tp import col_input, row_parallel
 
 #: additive mask constant of the dense attention paths; the paged paths
 #: (serve/engine.py, kernels/paged_attention) use -1e30 instead
@@ -176,7 +176,9 @@ def mlp(params, x: torch.Tensor, act: str, d_ff: int) -> torch.Tensor:
     approximation (whisper); ``d_ff`` is the whole hidden width.  Under a
     mesh's ``logical_axes`` w1/w3 may be column blocks, so the hidden is
     this rank's block, and the row block of w2 ends in one all-reduce
-    (``models/tp.py``); elsewhere the plain products."""
+    (``models/tp.py``; under the train step ``x`` enters the column
+    blocks through ``to_model``); elsewhere the plain products."""
+    x = col_input(x, params["w1"], d_ff)
     if act == "swiglu":
         h = F.silu(qmm(x, params["w1"])) * qmm(x, params["w3"])
     elif act == "sq_relu":
@@ -203,7 +205,8 @@ def moe(params, x: torch.Tensor, cfg) -> torch.Tensor:
     axis, so each rank routes only its slots; without a mesh, or when the
     batch does not split over the batch axes, the local grouped path.
     The port's one mesh caller, the serve step, runs on a 1-wide ``data``
-    axis (ROADMAP.md § A14b), where x is the whole batch."""
+    axis (the serve ``data`` axis and MoE training on a mesh are ROADMAP.md
+    § A14b-ii), where x is the whole batch."""
     from ..distributed.axes import _AXES
     ctx = _AXES.get()
     B, S, d = x.shape

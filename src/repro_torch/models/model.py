@@ -43,10 +43,13 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..device import resolve_device
+from ..distributed.axes import spmd_train, train_mesh
 from ..tree import leaves
 from .config import LayerSpec, ModelConfig
 from .layers import attention, mlp, moe, rms_norm, rope
 from .quantized import matmul, qmm
+from .tp import (col_input, col_inputs, fsdp_layer, gather_cols,
+                 row_parallel, vocab_embed)
 from .rglru import init_rglru_params, rglru_decode_step, rglru_forward
 from .ssm import init_mamba_params, mamba_decode_step, mamba_forward, ssm_dims
 
@@ -155,17 +158,7 @@ def _init_layer(spec: LayerSpec, cfg: ModelConfig, ini: _Init, n: int,
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Union[str, torch.device] = "cuda") -> Dict:
-    """Random params with the reference's shapes, scales and tree layout,
-    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
-    The values differ from the reference's ``jax.random`` draws; tests
-    that compare the two packages bridge the reference's params with
-    :func:`params_from_numpy` instead."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    ini = _Init(gen, dev)
+def _build_params(cfg: ModelConfig, ini) -> Dict:
     dtype = _dt(cfg)
     d = cfg.d_model
     params: Dict[str, Any] = {
@@ -187,6 +180,39 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "final_norm": ini.zeros((d,), torch.float32),
         }
     return params
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: Union[str, torch.device] = "cuda") -> Dict:
+    """Random params with the reference's shapes, scales and tree layout,
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+    The values differ from the reference's ``jax.random`` draws; tests
+    that compare the two packages bridge the reference's params with
+    :func:`params_from_numpy` instead."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return _build_params(cfg, _Init(gen, dev))
+
+
+class _MetaInit:
+    """Leaves on the ``meta`` device: shapes and dtypes, no storage."""
+
+    def normal(self, shape, scale, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def zeros(self, shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def full(self, shape, value, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def params_shape(cfg: ModelConfig) -> Dict:
+    """The params tree of ``cfg`` as ``meta`` tensors (the reference's
+    ``jax.eval_shape`` of ``init_params``): what sharding rules read when
+    a rank holds only blocks."""
+    return _build_params(cfg, _MetaInit())
 
 
 def params_from_numpy(tree, device: Union[str, torch.device] = "cuda"):
@@ -260,17 +286,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # layer application
 # --------------------------------------------------------------------------
 def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
-    """x [B, S, d] → q [B, H, S, hd], k/v [B, KV, S, hd] (qk-norm, RoPE)."""
+    """x [B, S, d] → q [B, H, S, hd], k/v [B, KV, S, hd] (qk-norm, RoPE).
+    Under the train step on a mesh the projections may be column blocks,
+    gathered whole in one all-gather (``tp.gather_cols``); head counts
+    come from the whole projections' widths."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = qmm(x, p["wq"])
-    k = qmm(x, p["wk"])
-    v = qmm(x, p["wv"])
+    hd = cfg.head_dim
+    wholes = (cfg.n_heads * hd, cfg.n_kv * hd, cfg.n_kv * hd)
+    ws = (p["wq"], p["wk"], p["wv"])
+    q, k, v = (qmm(xi, w) for xi, w in zip(col_inputs(x, ws, wholes), ws))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd).transpose(1, 2)
-    k = k.reshape(B, S, KV, hd).transpose(1, 2)
-    v = v.reshape(B, S, KV, hd).transpose(1, 2)
+    q, k, v = gather_cols((q, k, v), wholes)
+    q = q.reshape(B, S, q.shape[-1] // hd, hd).transpose(1, 2)
+    k = k.reshape(B, S, k.shape[-1] // hd, hd).transpose(1, 2)
+    v = v.reshape(B, S, v.shape[-1] // hd, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -282,7 +312,8 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
 def _self_attn_full(spec: LayerSpec, cfg: ModelConfig, p,
                     x: torch.Tensor) -> torch.Tensor:
     """Causal self-attention over the whole sequence (prefill and train;
-    the reference's ``_self_attn_train``)."""
+    the reference's ``_self_attn_train``); ``wo`` may be a row block
+    under the train step on a mesh (``tp.row_parallel``)."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
     window = spec.window or cfg.window
@@ -290,7 +321,8 @@ def _self_attn_full(spec: LayerSpec, cfg: ModelConfig, p,
                   chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
                   p_bf16=cfg.attn_p_bf16,
                   causal_groups=cfg.attn_causal_groups)
-    return qmm(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+    return row_parallel(o.transpose(1, 2).reshape(B, S, -1), p["wo"],
+                        cfg.n_heads * cfg.head_dim)
 
 
 def _self_attn_decode(spec: LayerSpec, cfg: ModelConfig, p,
@@ -461,8 +493,15 @@ def _remat_kwargs(policy: str) -> Dict:
     return kw
 
 
-def _train_layer(spec, cfg, p, x, enc_out):
-    return apply_layer(spec, cfg, p, x, mode="train", enc_out=enc_out)[0]
+def _train_layer(spec, cfg, p, x, enc_out, mesh=None):
+    """One layer of the train forward.  Under the train step on a mesh
+    (``mesh``, the one the step runs on) its FSDP blocks are gathered
+    first; a remat replay re-enters the step's scope with that mesh (the
+    replay may run on autograd's device thread) and so gathers again, in
+    the same order on every rank."""
+    with spmd_train(mesh):
+        return apply_layer(spec, cfg, fsdp_layer(p, cfg), x, mode="train",
+                           enc_out=enc_out)[0]
 
 
 def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
@@ -474,12 +513,15 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
     token's — and returned: (x, caches).  Mode 'train' takes no caches;
     with ``cfg.remat``, when autograd records the forward, each layer runs
     under ``torch.utils.checkpoint`` (its activations are recomputed in
-    the backward, as under the reference's ``jax.checkpoint``)."""
+    the backward, as under the reference's ``jax.checkpoint``).  Under the
+    train step on a mesh each train layer gathers its FSDP blocks first
+    (``_train_layer``)."""
     stage_list = stage_list or cfg.stages()
     remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
              and (x.requires_grad
                   or any(t.requires_grad for t in leaves(stages_params))))
     remat_kw = _remat_kwargs(cfg.remat_policy) if remat else None
+    mesh = train_mesh() if mode == "train" else None
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
         layers = [_per_layer(sp[i], stage.count)
                   for i in range(len(stage.period))]
@@ -491,7 +533,11 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                 pp = layers[i][j]
                 if remat:
                     x = torch_checkpoint.checkpoint(
-                        _train_layer, spec, cfg, pp, x, enc_out, **remat_kw)
+                        _train_layer, spec, cfg, pp, x, enc_out, mesh,
+                        **remat_kw)
+                    continue
+                if mesh is not None:
+                    x = _train_layer(spec, cfg, pp, x, enc_out, mesh)
                     continue
                 cc = None if caches is None else layer_caches[i][j]
                 x, nc = apply_layer(spec, cfg, pp, x, mode=mode, cache=cc,
@@ -509,21 +555,49 @@ def _embed_tokens(cfg: ModelConfig, params, tokens: torch.Tensor,
                   extra_embeds: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
     """Token embeddings in the compute dtype, ``extra_embeds`` (vision
-    tokens) in front."""
-    x = params["embed"][tokens].to(_cdt(cfg))
+    tokens) in front; a vocab-sharded lookup under the train step on a
+    mesh (``tp.vocab_embed``)."""
+    x = vocab_embed(params["embed"], tokens, cfg.vocab).to(_cdt(cfg))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(_cdt(cfg)), x], dim=1)
     return x
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the vocab product, as float32.  Under the train
+    step on a mesh the head may be a vocab column block: the logits are
+    gathered whole over ``model`` (in the compute dtype) before the loss,
+    so every rank holds all of them, B·S·V·4 bytes once cast (0.62 GB at
+    qwen3-0.6b's 151,936-word vocab and 8 x 128 tokens)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
     if isinstance(head, dict):
         return qmm(x, head).float()
-    return (x @ head.to(x.dtype)).float()
+    y = col_input(x, head, cfg.vocab) @ head.to(x.dtype)
+    return gather_cols((y,), (cfg.vocab,))[0].float()
+
+
+def check_train_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise unless ``cfg`` trains on ``mesh``: a mesh wider than one
+    device takes only attention stacks with dense MLPs (one device takes
+    every stack, through the plain forms)."""
+    if mesh is None or mesh.size == 1:
+        return
+    kinds = {sp.kind for st in cfg.stages() for sp in st.period}
+    what = [w for w, bad in (
+        ("MoE", any(sp.moe for st in cfg.stages() for sp in st.period)),
+        ("RG-LRU", "rglru" in kinds), ("Mamba-2", "mamba" in kinds),
+        ("encoder-decoder", cfg.is_encdec),
+        ("vision", bool(cfg.n_vis_tokens))) if bad]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name} has {', '.join(what)} layers or inputs: training "
+            f"on a {'x'.join(map(str, mesh.shape.values()))} mesh takes "
+            f"only attention stacks with dense MLPs (ROADMAP.md § A14b-ii "
+            f"brings MoE, RG-LRU, Mamba-2, encoder-decoder and vision "
+            f"stacks)")
 
 
 def _run_encoder(cfg: ModelConfig, params,
@@ -555,6 +629,7 @@ def _inputs(cfg: ModelConfig, params, batch: Dict):
 def forward_train(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
     """batch: tokens [B, S'] (+ audio_frames / vision_embeds) → logits
     [B, S, V] (S = n_vis_tokens + S' for vision stacks)."""
+    check_train_mesh(cfg, train_mesh())
     x, enc_out = _inputs(cfg, params, batch)
     x, _ = run_stages(cfg, params["stages"], x, mode="train",
                       enc_out=enc_out)

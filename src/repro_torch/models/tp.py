@@ -6,12 +6,36 @@ by ``distributed/sharding.py::param_specs`` is this rank's block over
 :func:`vocab_embed` looks tokens up in a vocab-sharded table; each ends
 in one all-reduce.  Under no scope, or on a 1-wide ``model`` axis, each
 is the plain op it replaces.
+
+Those are the serve path's forms: collectives in place, nothing to
+differentiate.  Under the train step's ``spmd_train`` scope on a mesh
+wider than one device (``axes.train_mesh``) the same functions take the
+autograd forms of ``launch/mesh.py``, and :func:`col_inputs`,
+:func:`gather_cols` and :func:`fsdp_layer` join them:
+
+  * a replicated activation enters column blocks through ``to_model``
+    (:func:`col_inputs`), and column blocks are gathered whole with
+    ``gather_model`` (:func:`gather_cols`: q/k/v, the logits);
+  * a row block takes this rank's slice of a whole activation
+    (``split_model``) and ends in ``from_model`` (:func:`row_parallel`:
+    ``wo``, ``w2``); the vocab-sharded lookup ends in ``from_model``;
+  * each layer's FSDP blocks are gathered over the FSDP axes at the start
+    of the layer (:func:`fsdp_layer`), their gradients reduce-scattered
+    back.
+
+Every activation between those points is whole and the same on every
+``model`` rank, so whatever divides what (half a KV head a rank, a
+weight left whole where its dim does not split) each rank's gradient of
+its blocks is the one-device gradient's block.
 """
 from __future__ import annotations
 
 import torch
 
-from ..distributed.axes import model_axis, to_block, to_whole
+from ..distributed.axes import model_axis, to_block, to_whole, train_mesh
+from ..distributed.sharding import fsdp_axes_of, fsdp_dim
+from ..launch.mesh import (fsdp_gather, from_model, gather_model,
+                           split_model, to_model)
 from .quantized import qmm
 
 
@@ -19,10 +43,66 @@ def _rows(w) -> int:
     return (w["q8"] if isinstance(w, dict) else w).shape[-2]
 
 
+def _cols(w) -> int:
+    return (w["q8"] if isinstance(w, dict) else w).shape[-1]
+
+
+def col_inputs(x: torch.Tensor, ws, wholes):
+    """``x`` as it enters each ``x @ w`` of ``ws``, whose ``wholes``
+    output columns may be ``model`` blocks: under the train step on a
+    mesh, the products by blocks share one ``to_model(x)`` (their
+    gradients of ``x`` are shares, summed over ``model`` backward in one
+    all-reduce) and a whole ``w`` takes ``x``; everywhere else ``x``."""
+    m = train_mesh()
+    cut = [_cols(w) != n for w, n in zip(ws, wholes)]
+    if m is None or not any(cut):
+        return [x] * len(cut)
+    xm = to_model(x, m)
+    return [xm if c else x for c in cut]
+
+
+def col_input(x: torch.Tensor, w, whole: int) -> torch.Tensor:
+    """:func:`col_inputs` for one product."""
+    return col_inputs(x, [w], [whole])[0]
+
+
+def gather_cols(xs, wholes):
+    """Products by column blocks whole along their last dim: under the
+    train step on a mesh one ``gather_model`` for every block among
+    ``xs`` (q, k and v of one layer: one all-gather), a tensor already
+    whole left as it is; elsewhere ``xs`` as they are (the serve step
+    gathers its own)."""
+    m = train_mesh()
+    if m is None:
+        return tuple(xs)
+    blk = [x.shape[-1] != w for x, w in zip(xs, wholes)]
+    if not any(blk):
+        return tuple(xs)
+    n = m.shape["model"]
+    cut = [x for x, b in zip(xs, blk) if b]
+    widths = [x.shape[-1] for x in cut]
+    g = gather_model(torch.cat(cut, -1), m, -1)
+    parts = iter(torch.split(g.reshape(*g.shape[:-1], n, sum(widths)),
+                             widths, -1))
+    return tuple(next(parts).flatten(-2) if b else x
+                 for x, b in zip(xs, blk))
+
+
 def row_parallel(x: torch.Tensor, w, whole: int) -> torch.Tensor:
     """``x @ w`` where ``w``'s ``whole`` input rows may be a ``model``
     block: then ``x`` is taken as the matching block and the partial
-    products end in one all-reduce; a whole ``w`` takes ``x`` whole."""
+    products end in one all-reduce; a whole ``w`` takes ``x`` whole.
+    Under the train step the block of a whole ``x`` is ``split_model``'s
+    and the sum ``from_model``'s."""
+    m = train_mesh()
+    if m is not None:
+        if _rows(w) == whole:
+            if x.shape[-1] != whole:
+                x = gather_model(x, m, -1)
+            return qmm(x, w)
+        if x.shape[-1] == whole:
+            x = split_model(x, m, -1)
+        return from_model(qmm(x, w), m)
     m = model_axis()
     if m is None or _rows(w) == whole:
         return qmm(to_whole(x, -1, whole), w)
@@ -34,8 +114,12 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
                 vocab: int) -> torch.Tensor:
     """``table[tokens]`` for a vocab-sharded table: each rank looks up the
     tokens its row block holds, zeros the rest, and one all-reduce sums
-    them — exact, since one rank adds each non-zero row."""
-    m = model_axis()
+    them — exact, since one rank adds each non-zero row (``from_model``
+    under the train step)."""
+    tm = train_mesh()
+    m = model_axis() if tm is None else (
+        (tm, tm.shape["model"], tm.coords["model"])
+        if tm.shape["model"] > 1 else None)
     if m is None or table.shape[0] == vocab:
         return table[tokens]
     mesh, _, r = m
@@ -44,4 +128,33 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
     mine = (local >= 0) & (local < n_loc)
     rows = table[torch.clamp(local, 0, n_loc - 1)]
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    if tm is not None:
+        return from_model(rows, mesh)
     return mesh.all_reduce(rows.contiguous())
+
+
+def fsdp_layer(p, cfg):
+    """One layer's params with every FSDP block gathered whole over the
+    FSDP axes (``fsdp_gather``: reduce-scatter backward), under the train
+    step on a mesh; elsewhere ``p`` itself.  A leaf is a block when its
+    FSDP dim (``sharding.fsdp_dim``, a d_model dim on the dense and
+    attention weights) is shorter than ``d_model``."""
+    m = train_mesh()
+    axes = None if m is None else fsdp_axes_of(cfg, m)
+    if m is None or not m.wide(axes):
+        return p
+    n = m.axis_size(axes)
+
+    def walk(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: walk(k, v) for k, v in leaf.items()}
+        dim = fsdp_dim(name, leaf.dim())
+        if dim is None or leaf.shape[dim] == cfg.d_model:
+            return leaf
+        if leaf.shape[dim] * n != cfg.d_model:
+            raise ValueError(f"{name} {tuple(leaf.shape)}: dim {dim} is "
+                             f"neither d_model {cfg.d_model} nor its block "
+                             f"over {axes}")
+        return fsdp_gather(leaf, m, dim, axes)
+
+    return walk("", p)

@@ -62,23 +62,44 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32 (a 0-dim device
-    tensor; the leaves are summed in the reference's order)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    tensor; the leaves are summed in the reference's order).
+
+    With ``shardings`` (a tree of ``distributed.sharding.Sharding`` on a
+    mesh) each leaf is this rank's block: each element is counted once
+    over the mesh — a leaf only on the ranks at index 0 of every wide axis
+    it is not cut over — and one all-reduce over every wide axis sums the
+    ranks' shares, so every rank gets the same scalar (on a 1x1 mesh: the
+    plain sum, in its order, and no all-reduce)."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves(tree)))
+    sh = leaves(shardings)
+    mesh = sh[0].mesh
+    xs = leaves(tree)
+    total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    for x, s in zip(xs, sh, strict=True):
+        cut = s.axes()
+        if all(mesh.coords[a] == 0 for a in mesh.all_axes()
+               if a not in cut):
+            total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(mesh.all_reduce(total, mesh.all_axes()))
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig
+def adamw_update(params, grads, state, cfg: AdamWConfig, shardings=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: warmup schedule, clipping by the global norm, bias
     correction, decoupled weight decay.  ``params`` and the moments of
     ``state`` are updated in place and returned with the metrics
-    ``{"grad_norm", "lr"}`` (0-dim device tensors)."""
+    ``{"grad_norm", "lr"}`` (0-dim device tensors).  On a device mesh
+    each leaf is this rank's block and ``shardings`` (the params'
+    ``Sharding`` tree) makes the norm the whole tree's
+    (:func:`global_norm`); the update itself is elementwise."""
     state["step"].add_(1)
     step = state["step"].float()
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(_const(gnorm, cfg.clip_norm) / (gnorm + 1e-9),
                         max=1.0)
     lr = _schedule(cfg, state["step"])

@@ -13,6 +13,11 @@ same logic).
 
 The loop reads the loss back to the host once a step before it takes the
 step's time, so ``dt`` covers the device's work, not only its enqueue.
+
+On a device mesh (``mesh=``, wider than one device) a save is a
+collective (``checkpoint.save_pytree`` gathers every leaf), so every rank
+must save at the same steps: the ranks agree on the SIGTERM flag (one
+all-reduce max a step) before deciding.
 """
 from __future__ import annotations
 
@@ -45,8 +50,10 @@ class StragglerMonitor:
 class TrainLoop:
     def __init__(self, train_step: Callable, batch_fn: Callable,
                  ckpt_manager, log_path: Optional[str] = None,
-                 ckpt_every: int = 50, straggler_factor: float = 2.0):
+                 ckpt_every: int = 50, straggler_factor: float = 2.0,
+                 mesh=None):
         self.train_step = train_step
+        self.mesh = mesh
         self.batch_fn = batch_fn
         self.ckpt = ckpt_manager
         self.ckpt_every = ckpt_every
@@ -86,6 +93,8 @@ class TrainLoop:
             self._log({"step": step, "loss": loss, "dt_s": round(dt, 4),
                        "grad_norm": float(metrics["grad_norm"]),
                        "straggler": bool(slow)})
+            if self.mesh is not None:
+                self._preempted = self.mesh.agree(self._preempted)
             if step % self.ckpt_every == 0 or step == n_steps:
                 self.ckpt.save(state, step)
             if self._preempted:

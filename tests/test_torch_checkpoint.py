@@ -171,8 +171,20 @@ def test_restore_keeps_template_dtype_device_and_host_copies(tmp_path):
     assert back["n"].dtype == torch.int64 and torch.equal(back["n"], t["n"])
     assert torch.equal(back["x"], torch.zeros(2))
     assert all(v.device == torch.device("cpu") for v in back.values())
-    with pytest.raises(NotImplementedError, match="§ A14"):
-        restore_pytree(t, tmp_path, 7, shardings=object())
+    # through shardings: rank 1 of a 1x2 mesh gets its fresh blocks
+    from repro_torch.distributed.sharding import Sharding, Spec
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(1, 2, "cpu", rank=1)
+    blk = restore_pytree(
+        {"h": torch.zeros(3, 2, dtype=torch.bfloat16),
+         "n": torch.zeros(3, dtype=torch.int64), "x": torch.zeros(2)},
+        tmp_path, 7, shardings={"h": Sharding(mesh, Spec(None, "model")),
+                                "n": Sharding(mesh, Spec("model")),
+                                "x": Sharding(mesh, Spec(None))})
+    assert torch.equal(blk["h"], t["h"][:, 2:]) and blk["h"].is_contiguous()
+    assert blk["h"].dtype == torch.bfloat16
+    assert torch.equal(blk["n"], t["n"][3:]) and torch.equal(blk["x"],
+                                                             back["x"])
     with pytest.raises(ValueError, match="shape mismatch"):
         restore_pytree({"h": t["h"], "n": torch.zeros(5), "x": t["x"]},
                        tmp_path, 7)

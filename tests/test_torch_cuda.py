@@ -1326,3 +1326,59 @@ def test_legacy_launcher_on_card(dev):
     assert launches == srv.cfg.n_layers * srv.decode_calls
     engine, _, _ = launch_serve.main(base)
     assert {r.rid: r.out for r in legacy} == {r.rid: r.out for r in engine}
+
+
+# -- training on a 1x1 device mesh ---------------------------------------------
+def test_train_step_on_1x1_mesh_bit_equal_unmeshed(dev, tmp_path,
+                                                   monkeypatch):
+    """The qwen3 smoke step on the card inside ``logical_axes`` of a 1x1
+    mesh (``shard_state`` keeps the same tensors), through the SPMD step:
+    losses, grad norms and state bit-equal to the unmeshed step over 3
+    steps, no collective, one step under ``set_sync_debug_mode("error")``;
+    a save through the mesh's shardings restores through them equal to
+    the plain restore."""
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed.axes import logical_axes
+    from repro_torch.distributed.sharding import (shard_state, shardings_of,
+                                                  state_specs)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    entered, spmd_train = [], step_mod.spmd_train
+    monkeypatch.setattr(step_mod, "spmd_train",
+                        lambda m: entered.append(m) or spmd_train(m))
+    cfg = smoke_config("qwen3-0.6b")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1)
+    mesh = make_host_mesh(1, 1, device="cuda")
+    plain = init_train_state(cfg, opt, 0, dev)
+    meshed = shard_state(cfg, init_train_state(cfg, opt, 0, dev), mesh, dev)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLMData(cfg, 8, 32, seed=0)
+    for i in range(3):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(i).items()}
+        plain, m_plain = step(plain, batch)
+        torch.cuda.synchronize()
+        if i == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with logical_axes(mesh):
+                meshed, m_mesh = step(meshed, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(torch.equal(m_plain[k], m_mesh[k]) for k in m_plain)
+    assert entered == [mesh] * 3
+    assert all(torch.equal(a, b) for a, b in zip(leaves(plain),
+                                                 leaves(meshed)))
+    assert all(c["calls"] == 0 for c in mesh.collectives.values())
+    sh = shardings_of(state_specs(cfg, meshed, mesh), mesh)
+    save_pytree(meshed, tmp_path, 3, shardings=sh)
+    back = restore_pytree(meshed, tmp_path, 3, shardings=sh)
+    want = restore_pytree(plain, tmp_path, 3)
+    assert all(a.device == dev and torch.equal(a, b)
+               for a, b in zip(leaves(back), leaves(want)))

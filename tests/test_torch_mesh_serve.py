@@ -339,7 +339,7 @@ def test_mesh_placement_is_a_block_property(spawned, world):
 
 @pytest.mark.parametrize("case,exc,item", [
     ("kernel", "ValueError", "kernel"),
-    ("data", "NotImplementedError", "A14b"),
+    ("data", "NotImplementedError", "A14b-ii"),
     ("auto", "NotImplementedError", "A15b")])
 @pytest.mark.parametrize("world", WORLDS)
 def test_mesh_refusals(spawned, world, case, exc, item):
@@ -376,7 +376,8 @@ def test_moe_ep_T1_matches_local(spawned, world, B, S):
                                    atol=MOE_TOL)
         assert _calls(got["collectives"]) == {
             "all_reduce": 0, "all_gather": 0, "all_to_all": 2,
-            "broadcast": 0}
+            "broadcast": 0,
+            "reduce_scatter": 0, "ppermute": 0}
         # every rank sends its whole [E, cap, d] buffer, twice
         assert got["collectives"]["all_to_all"]["bytes"] == \
             2 * 4 * cap * 64 * 4
@@ -395,7 +396,8 @@ def test_moe_ep_tp_fallback(spawned):
                                    atol=MOE_TOL)
         assert _calls(got["collectives"]) == {
             "all_reduce": 1, "all_gather": 0, "all_to_all": 0,
-            "broadcast": 0}
+            "broadcast": 0,
+            "reduce_scatter": 0, "ppermute": 0}
 
 
 def test_moe_ep_on_a_data_axis(spawned):
@@ -416,7 +418,8 @@ def test_moe_ep_on_a_data_axis(spawned):
         assert err < DATA_REL_TOL, err
         assert _calls(got["collectives"]) == {
             "all_reduce": 0, "all_gather": 1, "all_to_all": 2,
-            "broadcast": 0}
+            "broadcast": 0,
+            "reduce_scatter": 0, "ppermute": 0}
     assert seen == {(0, 0), (0, 1), (1, 0), (1, 1)}
 
 
@@ -540,7 +543,7 @@ def test_launcher_mesh_needs_its_processes(monkeypatch, capsys):
 def test_host_mesh_needs_its_processes():
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         make_host_mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="A14b"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 256"):
         make_production_mesh()
 
 

@@ -424,7 +424,7 @@ def test_launcher_trains_resumes_and_refuses_pod(tmp_path, capsys):
         "--seq", "16", "--ckpt-dir", str(tmp_path / "other")])
     np.testing.assert_array_equal(np.concatenate([losses, losses2]),
                                   straight)
-    with pytest.raises(NotImplementedError, match="§ A14"):
+    with pytest.raises(RuntimeError, match="needs 256 processes"):
         _launch(tmp_path, 1, "--mesh", "pod")
     assert launch_train.parse_args([]).smoke is False
     assert launch_train.parse_args([]).device == "cuda"
