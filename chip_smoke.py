@@ -64,7 +64,8 @@ Phases (any failure exits non-zero and prints no result line):
               ``set_sync_debug_mode("error")`` while a horizon's event is
               pending, its pages equal to the image; then the device ms
               of ``restore_block`` and ``snapshot_block`` on a 10-page
-              image beside a ``copy_`` of its bytes.  It runs after 4c;
+              image beside a ``copy_`` of its bytes.  It runs after 4i,
+              beside phase 11's child, and 4e and 4f follow it there;
  4e. traffic — open-loop traffic and telemetry on the qwen3 serve's
               weights (4 slots, pages of 8, 129 pages, horizon 8, prefill
               chunks of 8, the prefix cache on): ``make_trace`` of 16
@@ -139,20 +140,35 @@ Phases (any failure exits non-zero and prints no result line):
               step in turns; 4g's step-10 checkpoint restored through the
               mesh's shardings equal to the plain restore; one step with
               the EF compressor finite and sync-free; no paged-attention
-              launch.  It runs after 4g, before 4h;
+              launch.  It runs after 4g, before 4k;
+ 4k. train-stacks — every remaining stack on a 1x1 training mesh, at
+              full width, through ``launch.train --mesh host``'s route
+              (``make_host_mesh(1, 1)``, ``shard_state``, the SPMD step
+              under ``logical_axes``): mixtral-8x7b cut to 1 layer (at
+              float32 compute and ``capacity_factor`` E/K), mamba2-1.3b
+              uncut, recurrentgemma-9b cut to one period (3 layers),
+              whisper-small uncut and internvl2-26b cut to 2 layers, 2
+              steps each against 2 unmeshed steps from the same seed and
+              batches: bit-equal for the dense-MLP stacks, the MoE within
+              ``TRAIN_STACKS_MOE_TOL``; every mesh step through the SPMD
+              step, no collective, the second under
+              ``set_sync_debug_mode("error")``, host ms a step, no
+              paged-attention launch.  A stack whose two states and
+              gradients would not fit on the card keeps the unmeshed
+              state on the host.  It runs after 4j, before 4h;
  4h. mesh   — phase 4's requests on a 1x1 device mesh through the
               launcher (``--mesh-shape 1x1 --kv-layout shard``: the
               kernel engine on ``make_host_mesh(1, 1)``): tokens equal to
               phase 4's, launches 28 x token steps, no collective; one
               horizon under ``set_sync_debug_mode("error")``; a horizon's
-              host ms beside phase 4's.  It runs after 4j, before 4i;
+              host ms beside phase 4's.  It runs after 4k, before 4i;
  4i. legacy — phase 4's requests through the launcher's per-sequence path
               (``--legacy``: ``serve/paged.py::PagedServer``, attention
               through ``paged_decode_attention`` on the kernel): tokens
               equal to phase 4's, launches exactly 28 x decode calls;
               then the host ms per decode call over 4 slots (the path
               reads each sequence's length from the device per token, by
-              design) and the call count.  It runs before 11;
+              design) and the call count.  It runs before 4d;
   5. transpose — the pack and unpack kernels bit-exact against their plain
               versions and numpy pack_np/unpack_np (n_bits 4/8/16/32 x
               1/31/256/1000/4133/2^20 elements, signed and unsigned, int32
@@ -227,9 +243,11 @@ Phases (any failure exits non-zero and prints no result line):
               steps, a sync-free horizon, a decode step's logits beside
               the unmeshed engine's, and horizons of both in turns.
               Each model is freed before the next loads.  The phase runs
-              last, in a child process (``chip_smoke.py --hetero OUT``):
-              before phase 7 it left the profiler losing launches of the
-              brightness call;
+              in a child process (``chip_smoke.py --hetero OUT``) started
+              after 4i, beside phases 4d-4f once it has timed the ring
+              shapes (host-bound both, they share the card): before phase
+              7 it left the profiler losing launches of the brightness
+              call, so it starts after every phase here that reads it;
  12. result — a JSON line per kernel, the card line, and the ok line last.
 
 Needs one CUDA card; exits with code 2 without one.
@@ -2513,9 +2531,10 @@ TRAIN_MESH_ARGV = ["--arch", "qwen3-0.6b", "--no-smoke", "--mesh", "host",
 
 
 def _bit_equal(torch, a, b):
-    """Whether two trees' leaves are equal, shape, dtype and bits."""
+    """Whether two trees' leaves are equal, shape, dtype and bits (``b``'s
+    leaves compared on ``a``'s device)."""
     from repro_torch.tree import leaves
-    return all(x.dtype == y.dtype and torch.equal(x, y)
+    return all(x.dtype == y.dtype and torch.equal(x, y.to(x.device))
                for x, y in zip(leaves(a), leaves(b), strict=True))
 
 
@@ -2549,9 +2568,9 @@ def phase_train_mesh(torch, pa, card, dev):
 
     spmd, spmd_train = [0], step_mod.spmd_train
 
-    def counted_spmd(m):
+    def counted_spmd(m, **kw):
         spmd[0] += 1
-        return spmd_train(m)
+        return spmd_train(m, **kw)
     step_mod.spmd_train = counted_spmd
     pa.launches = 0
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
@@ -2703,6 +2722,187 @@ def phase_train_mesh(torch, pa, card, dev):
           f"in {restore_s:.2f} s, equal to the plain restore; EF-compressed "
           f"step loss {c_loss:.4f}; paged-attention launches {pa.launches}")
     print(f"[train-mesh] {json.dumps({'train_mesh': res})}")
+    return res
+
+
+# -- phase 4k: every remaining stack on a 1x1 training mesh ----------------
+#: (arch, layers kept (None: the published depth), batch, text positions):
+#: full width.  One mixtral layer is 1.45 G params (E 8 x 3 x 4,096 x
+#: 14,336 and attention) beside 0.26 G of embedding and head
+TRAIN_STACKS = (("mixtral-8x7b", 1, 4, 128), ("mamba2-1.3b", None, 4, 128),
+                ("recurrentgemma-9b", 3, 4, 128),
+                ("whisper-small", None, 4, 64), ("internvl2-26b", 2, 2, 32))
+TRAIN_STACKS_STEPS = 2
+#: the MoE on the 1x1 mesh (one dispatch group through ``moe_ep``) against
+#: the unmeshed step (the local path's groups), both at float32 compute
+#: and ``capacity_factor`` E/K, where neither drops a token: the same
+#: math in GEMMs of other row counts.  Loss and grad norm 1e-5 relative;
+#: params 4e-5 absolute (Adam moves an element whose gradient is at
+#: rounding level by up to its rate either way, and the two steps' rates,
+#: 3e-6 and 6e-6, bound that at 2 x 1.8e-5); each m and v leaf within 1e-4
+#: of its norm
+TRAIN_STACKS_MOE_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "params": 4e-5,
+                        "moments": 1e-4}
+#: what the card keeps free beside two states and one set of gradients
+TRAIN_STACKS_HEADROOM = 8e9
+
+
+def _stack_cfg(arch, depth):
+    """The phase's config of ``arch``: the launcher's (``grad_accum`` 1),
+    cut to ``depth`` layers; the MoE at float32 compute and
+    ``capacity_factor`` E/K."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), grad_accum=1)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def _stack_compare(torch, cfg, m_plain, m_mesh, plain, meshed):
+    """The meshed run against the unmeshed one: bit-equal for a dense-MLP
+    stack, the MoE within ``TRAIN_STACKS_MOE_TOL``; returns whether the
+    two were bit-equal (metrics and state) and the readings."""
+    same = (all(torch.equal(a[k], b[k].to(a[k].device))
+                for a, b in zip(m_plain, m_mesh) for k in a)
+            and _bit_equal(torch, meshed, plain))
+    if not cfg.n_experts and not same:
+        _fail(f"[train-stacks] {cfg.name}: the 1x1 mesh steps are not "
+              f"bit-equal to the unmeshed steps (metrics {m_mesh} vs "
+              f"{m_plain})")
+    if same:
+        return same, {"loss": 0.0, "grad_norm": 0.0, "params": 0.0,
+                      "moments": 0.0}
+    got = {k: max(abs(float(a[k]) - float(b[k])) / abs(float(a[k]))
+                  for a, b in zip(m_plain, m_mesh))
+           for k in ("loss", "grad_norm")}
+    got["params"] = _tree_diff(meshed["params"], plain["params"])
+    got["moments"] = _moment_err(meshed["opt"], plain["opt"])
+    if any(got[k] > tol for k, tol in TRAIN_STACKS_MOE_TOL.items()):
+        _fail(f"[train-stacks] {cfg.name}: the 1x1 mesh steps are off the "
+              f"unmeshed steps by {got} (bounds {TRAIN_STACKS_MOE_TOL})")
+    return same, got
+
+
+def phase_train_stacks(torch, pa, card, dev):
+    """Phase 4k: each of ``TRAIN_STACKS`` on a 1x1 mesh through the
+    launcher's route against the unmeshed step (module doc).  Returns the
+    numbers of the ``[train-stacks]`` line."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.device import stage
+    from repro_torch.distributed.axes import logical_axes
+    from repro_torch.distributed.sharding import shard_state
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import params_shape
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    spmd, spmd_train = [0], step_mod.spmd_train
+
+    def counted_spmd(m, **kw):
+        spmd[0] += 1
+        return spmd_train(m, **kw)
+    step_mod.spmd_train = counted_spmd
+    pa.launches = 0
+    total = torch.cuda.get_device_properties(dev).total_memory
+    opt = AdamWConfig()
+    out = {}
+    try:
+        for arch, depth, B, S in TRAIN_STACKS:
+            t0 = time.perf_counter()
+            cfg = _stack_cfg(arch, depth)
+            n = sum(t.numel() for t in leaves(params_shape(cfg)))
+            # float32 params, m and v a state; float32 gradients a step
+            on_card = 28 * n + TRAIN_STACKS_HEADROOM < total
+            data = SyntheticLMData(cfg, B, cfg.n_vis_tokens + S, seed=0)
+            batches = [{k: stage(v, dev) for k, v in
+                        data.batch_at(i).items()}
+                       for i in range(TRAIN_STACKS_STEPS)]
+            step = make_train_step(cfg, opt)
+            mesh = make_host_mesh(1, 1, device="cuda")
+            spmd[0] = 0
+            plain, meshed = init_train_state(cfg, opt, 0, dev), None
+            if on_card:
+                meshed = shard_state(cfg, init_train_state(cfg, opt, 0, dev),
+                                     mesh, dev)
+            m_plain, m_mesh, host_ms = [], [], []
+
+            def mesh_step(i, state):
+                torch.cuda.synchronize()
+                if i == TRAIN_STACKS_STEPS - 1:
+                    torch.cuda.set_sync_debug_mode("error")
+                t1 = time.perf_counter()
+                try:
+                    with logical_axes(mesh, n_experts=cfg.n_experts):
+                        state, m = step(state, batches[i])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                host_ms.append((time.perf_counter() - t1) * 1e3)
+                m_mesh.append(m)
+                return state
+
+            for i in range(TRAIN_STACKS_STEPS):
+                plain, m = step(plain, batches[i])
+                m_plain.append(m)
+                if on_card:
+                    meshed = mesh_step(i, meshed)
+            if not on_card:
+                # the unmeshed state on the host, then the meshed run
+                plain = tree_map(lambda t: t.to("cpu", copy=True), plain)
+                _free(torch)
+                meshed = shard_state(cfg, init_train_state(cfg, opt, 0, dev),
+                                     mesh, dev)
+                for i in range(TRAIN_STACKS_STEPS):
+                    meshed = mesh_step(i, meshed)
+            if not all(math.isfinite(float(m["loss"])) for m in m_mesh):
+                _fail(f"[train-stacks] {arch}: losses {m_mesh}")
+            same, errs = _stack_compare(torch, cfg, m_plain, m_mesh, plain,
+                                        meshed)
+            if spmd[0] != TRAIN_STACKS_STEPS:
+                _fail(f"[train-stacks] {arch}: {spmd[0]} of "
+                      f"{TRAIN_STACKS_STEPS} mesh steps went through the "
+                      f"SPMD step")
+            calls = {k: dict(v) for k, v in mesh.collectives.items()}
+            if any(c["calls"] or c["bytes"] for c in calls.values()):
+                _fail(f"[train-stacks] {arch}: a 1x1 mesh made collectives: "
+                      f"{calls}")
+            out[arch] = {
+                "layers": cfg.n_layers, "params": n, "batch": B,
+                "positions": cfg.n_vis_tokens + S,
+                "compute_dtype": cfg.compute_dtype,
+                "unmeshed_state_on": "card" if on_card else "host",
+                "losses": [float(m["loss"]) for m in m_mesh],
+                "grad_norms": [float(m["grad_norm"]) for m in m_mesh],
+                "bit_equal": same, "errs": errs,
+                "spmd_steps": spmd[0], "host_ms": host_ms,
+                "seconds": time.perf_counter() - t0}
+            print(f"[train-stacks] {card}: {cfg.name} ({cfg.n_layers} "
+                  f"layers, {n} params, {cfg.compute_dtype} compute) on a "
+                  f"1x1 mesh, {TRAIN_STACKS_STEPS} steps of {B} x "
+                  f"{cfg.n_vis_tokens + S}: "
+                  f"{'bit-equal to' if same else 'within bounds of'} "
+                  f"the unmeshed steps ({errs}); losses "
+                  f"{out[arch]['losses']}; host ms a mesh step "
+                  f"{[round(x, 3) for x in host_ms]} (the last under "
+                  f"set_sync_debug_mode('error')); unmeshed state on the "
+                  f"{out[arch]['unmeshed_state_on']}; "
+                  f"{out[arch]['seconds']:.1f} s")
+            del plain, meshed, batches, m_plain, m_mesh
+            _free(torch)
+    finally:
+        step_mod.spmd_train = spmd_train
+    if pa.launches != 0:
+        _fail(f"[train-stacks] the paged-attention kernel ran {pa.launches} "
+              f"times in training")
+    res = {"stacks": out, "paged_attention_launches": pa.launches}
+    print(f"[train-stacks] {json.dumps({'train_stacks': res})}")
     return res
 
 
@@ -3037,33 +3237,79 @@ HETERO_TIMEOUT_S = 900
 HETERO_RESULT = Path(__file__).resolve().parent / "build" / "hetero.json"
 
 
-def run_hetero():
-    """Phase 11 in a process of its own, after every other phase: run
-    before phase 7, in this process or in a child, it left the profiler
-    of this process losing launches of the brightness call (the first 6
-    of its 8 in one run, all of them in the next two), while the same
-    phases without it, a fresh process and one idle for 200 s saw all 8.
-    In a child, its tens of gigabytes and millions of launches end with
-    the child.  The child's lines go to the same output; it is waited
-    for, and killed at its time limit.  Returns (max abs err at the ring
-    shapes, ring timing rows, kernel launches by path)."""
+#: how long the parent waits for the child to finish timing the kernel at
+#: the ring shapes before it goes on with its own phases
+HETERO_TIMED_WAIT_S = 300
+
+
+def start_hetero(torch):
+    """Start phase 11 in a process of its own and return it once the child
+    has timed the kernel at the ring shapes (``HETERO_RESULT`` with the
+    suffix ``.timed``), so that no launch of this process falls inside
+    those timings.  The child then serves its stacks while this process
+    runs phases 4d-4f: both are host-bound (the card idles about 90% of
+    a qwen3 horizon), so sharing the card takes about 280 s off the
+    script's time.  The child's output goes to files that
+    :func:`join_hetero` prints.  Run before phase 7, in this process or in
+    a child, phase 11 left the profiler of this process losing launches
+    of the brightness call (the first 6 of its 8 in one run, all of them
+    in the next two), while the same phases without it, a fresh process
+    and one idle for 200 s saw all 8; so it starts after every phase of
+    this process that reads the profiler (4c's tick, 4g's step, 4h's
+    horizon), and its tens of gigabytes and millions of launches end with
+    the child."""
     HETERO_RESULT.parent.mkdir(exist_ok=True)
-    HETERO_RESULT.unlink(missing_ok=True)
-    sys.stdout.flush()
+    timed = HETERO_RESULT.with_suffix(".timed")
+    for path in (HETERO_RESULT, timed):
+        path.unlink(missing_ok=True)
+    _free(torch)
+    log = (open(HETERO_RESULT.with_suffix(".out"), "w"),
+           open(HETERO_RESULT.with_suffix(".err"), "w"))
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                              "--hetero", str(HETERO_RESULT)],
+                             stdout=log[0], stderr=log[1])
+    child.started, child.log = time.perf_counter(), log
+    while not timed.exists():
+        if child.poll() is not None or (time.perf_counter() - child.started
+                                        > HETERO_TIMED_WAIT_S):
+            stop_hetero(child)
+            _fail(f"[hetero] the child did not time the ring shapes within "
+                  f"{HETERO_TIMED_WAIT_S} s (exit code {child.returncode})")
+        time.sleep(0.2)
+    return child
+
+
+def stop_hetero(child):
+    """Kill the child if it still runs, and print its output."""
+    if child.poll() is None:
+        child.kill()
+    child.wait()
+    for f, stream in zip(child.log, (sys.stdout, sys.stderr)):
+        f.close()
+        stream.write(Path(f.name).read_text())
+        stream.flush()
+
+
+def join_hetero(child):
+    """Wait for the child of :func:`start_hetero` (killed at
+    ``HETERO_TIMEOUT_S`` from its start) and print its output.  Returns
+    (max abs err at the ring shapes, ring timing rows, kernel launches by
+    path)."""
     try:
-        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                             "--hetero", str(HETERO_RESULT)],
-                            timeout=HETERO_TIMEOUT_S).returncode
+        child.wait(max(1.0, HETERO_TIMEOUT_S
+                       - (time.perf_counter() - child.started)))
     except subprocess.TimeoutExpired:
+        stop_hetero(child)
         _fail(f"[hetero] did not end within {HETERO_TIMEOUT_S} s")
-    if rc != 0:
-        _fail(f"[hetero] exited with code {rc}")
+    stop_hetero(child)
+    if child.returncode != 0:
+        _fail(f"[hetero] exited with code {child.returncode}")
     res = json.loads(HETERO_RESULT.read_text())
     return res["ring_err"], res["ring_rows"], res["launches"]
 
 
 def hetero_main(out: str) -> int:
-    """The child of :func:`run_hetero` (``chip_smoke.py --hetero OUT``):
+    """The child of :func:`start_hetero` (``chip_smoke.py --hetero OUT``):
     phase 11 on the card, its result as JSON in ``OUT``."""
     import torch
     import torch.nn.functional as F
@@ -3075,7 +3321,7 @@ def hetero_main(out: str) -> int:
     dev, card = _setup_card(torch)
     ring_err, ring_rows, launches = phase_hetero(
         torch, F, ops.paged_attention, ops, batched_paged_attention, dev,
-        card)
+        card, Path(out).with_suffix(".timed").touch)
     Path(out).write_text(json.dumps({"ring_err": ring_err,
                                      "ring_rows": ring_rows,
                                      "launches": launches}))
@@ -3095,12 +3341,13 @@ def _setup_card(torch):
     return dev, smi[0].strip()
 
 
-def phase_hetero(torch, F, pa, ops, batched, dev, card):
-    """The mixed stacks on the card: the kernel at the ring shapes;
-    gemma3-12b at its published config served, sync-free and timed; the
-    ring wrapping on a 1,032-token request; recurrentgemma-9b and
-    mamba2-1.3b at their published configs and mixtral-8x7b at full width
-    cut to 2 layers, each against its plain greedy decode."""
+def phase_hetero(torch, F, pa, ops, batched, dev, card, timed=None):
+    """The mixed stacks on the card: the kernel at the ring shapes (then
+    ``timed()``, if given); gemma3-12b at its published config served,
+    sync-free and timed; the ring wrapping on a 1,032-token request;
+    recurrentgemma-9b and mamba2-1.3b at their published configs and
+    mixtral-8x7b at full width cut to 2 layers, each against its plain
+    greedy decode."""
     import dataclasses
 
     from repro_torch.launch import serve
@@ -3109,6 +3356,8 @@ def phase_hetero(torch, F, pa, ops, batched, dev, card):
     t0 = time.perf_counter()
     ring_err, ring_rows = phase_ring_kernel(torch, F, pa, ops, batched, dev)
     print(f"[hetero] ring kernel part: {time.perf_counter() - t0:.1f} s")
+    if timed is not None:
+        timed()
     launches = {}
 
     for arch in ("gemma3-12b", "recurrentgemma-9b", "mamba2-1.3b",
@@ -3832,21 +4081,6 @@ def main() -> int:
 
     _free(torch)
     t0 = time.perf_counter()
-    swap_launches, swap_outs = phase_swap(torch, pa, card)
-    print(f"[swap] phase took {time.perf_counter() - t0:.1f} s")
-
-    _free(torch)
-    t0 = time.perf_counter()
-    traffic_launches = phase_traffic(torch, pa, card, dev, swap_outs)
-    print(f"[traffic] phase took {time.perf_counter() - t0:.1f} s")
-
-    _free(torch)
-    t0 = time.perf_counter()
-    chaos_launches = phase_chaos(torch, pa, card, dev, serve_outs, swap_outs)
-    print(f"[chaos] phase took {time.perf_counter() - t0:.1f} s")
-
-    _free(torch)
-    t0 = time.perf_counter()
     phase_train(torch, pa, card, dev)
     print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
 
@@ -3854,6 +4088,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train_mesh(torch, pa, card, dev)
     print(f"[train-mesh] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
+    phase_train_stacks(torch, pa, card, dev)
+    print(f"[train-stacks] phase took {time.perf_counter() - t0:.1f} s")
 
     _free(torch)
     t0 = time.perf_counter()
@@ -3865,10 +4104,34 @@ def main() -> int:
     legacy_launches = phase_legacy(torch, pa, card, serve_outs)
     print(f"[legacy] phase took {time.perf_counter() - t0:.1f} s")
 
-    _free(torch)
+    # phase 11 in its child beside phases 4d-4f (start_hetero)
+    t_hetero = time.perf_counter()
+    child = start_hetero(torch)
+    print(f"[hetero] child started; its ring timings took "
+          f"{time.perf_counter() - t_hetero:.1f} s")
+    try:
+        _free(torch)
+        t0 = time.perf_counter()
+        swap_launches, swap_outs = phase_swap(torch, pa, card)
+        print(f"[swap] phase took {time.perf_counter() - t0:.1f} s")
+
+        _free(torch)
+        t0 = time.perf_counter()
+        traffic_launches = phase_traffic(torch, pa, card, dev, swap_outs)
+        print(f"[traffic] phase took {time.perf_counter() - t0:.1f} s")
+
+        _free(torch)
+        t0 = time.perf_counter()
+        chaos_launches = phase_chaos(torch, pa, card, dev, serve_outs,
+                                     swap_outs)
+        print(f"[chaos] phase took {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        stop_hetero(child)
+        raise
     t0 = time.perf_counter()
-    ring_err, ring_rows, hetero_launches = run_hetero()
-    print(f"[hetero] phase took {time.perf_counter() - t0:.1f} s")
+    ring_err, ring_rows, hetero_launches = join_hetero(child)
+    print(f"[hetero] phase took {time.perf_counter() - t_hetero:.1f} s "
+          f"(waited {time.perf_counter() - t0:.1f} s for it after 4f)")
 
     csrc = "src/repro_torch/kernels/{}/csrc/{}.cu"
     simdram = [

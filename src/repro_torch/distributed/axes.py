@@ -42,14 +42,18 @@ _TRAIN: contextvars.ContextVar[Optional[object]] = contextvars.ContextVar(
 
 
 @contextlib.contextmanager
-def spmd_train(mesh):
+def spmd_train(mesh, batch_cut: bool = True):
     """The train step's scope: inside it a mesh wider than one device
     makes :func:`train_mesh` return it, and the model's forward takes its
     blocked, differentiable forms; ``mesh`` None (or one device) leaves
-    the plain forms.  A remat'd layer re-enters it with the mesh it was
-    run with, since its replay may run on autograd's device thread, which
-    sees no context of the caller's."""
-    tok = _TRAIN.set(mesh if mesh is not None and mesh.size > 1 else None)
+    the plain forms.  ``batch_cut`` says whether the step cut its batch
+    over the batch axes (``sharding.batch_spec`` leaves a batch whole on
+    every rank when the batch ranks do not divide it), which decides the
+    MoE's route (:func:`train_batch_cut`).  A remat'd layer re-enters it
+    and the logical axes with the scope it was run in
+    (:func:`train_scope`, :func:`in_scope`)."""
+    tok = _TRAIN.set((mesh, bool(batch_cut))
+                     if mesh is not None and mesh.size > 1 else None)
     try:
         yield
     finally:
@@ -59,7 +63,34 @@ def spmd_train(mesh):
 def train_mesh():
     """The mesh the train step runs on when it is wider than one device,
     else None (outside :func:`spmd_train`, too)."""
-    return _TRAIN.get()
+    scope = _TRAIN.get()
+    return None if scope is None else scope[0]
+
+
+def train_batch_cut() -> bool:
+    """Whether the train step's batch is this rank's block over the batch
+    axes (True outside a wide train scope, where no axis cuts it)."""
+    scope = _TRAIN.get()
+    return True if scope is None else scope[1]
+
+
+def train_scope() -> tuple:
+    """The context the model's forward runs in (the logical axes and the
+    train step's scope), for :func:`in_scope` to re-enter: a remat
+    replay may run on autograd's device thread, which sees no context
+    variable of the caller's."""
+    return _AXES.get(), _TRAIN.get()
+
+
+@contextlib.contextmanager
+def in_scope(scope: tuple):
+    """Run inside a context :func:`train_scope` captured."""
+    tok_a, tok_t = _AXES.set(scope[0]), _TRAIN.set(scope[1])
+    try:
+        yield
+    finally:
+        _TRAIN.reset(tok_t)
+        _AXES.reset(tok_a)
 
 
 @contextlib.contextmanager
@@ -139,7 +170,7 @@ def constrain(x: torch.Tensor, *dims: Optional[str],
                 raise NotImplementedError(
                     f"activation blocks over {wide}: only the 'model' axis "
                     f"cuts activations (the serve 'data' axis is ROADMAP.md "
-                    f"§ A14b-ii)")
+                    f"§ A14b-iii)")
             x = _slice(x, i, whole[i], n, mesh.coords["model"])
         else:
             x = _gather(x, i, whole[i], mesh)

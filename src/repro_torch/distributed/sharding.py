@@ -174,16 +174,6 @@ def fsdp_axes_of(cfg: ModelConfig, mesh):
     return "data"
 
 
-def fsdp_dim(name: str, nd: int) -> Optional[int]:
-    """The dim of an ``nd``-dim leaf named ``name`` (a dense or attention
-    weight) that ``param_specs`` FSDP-cuts, or None: its rule's ``data``
-    position."""
-    rule = _RULES.get(name)
-    if rule is None or "data" not in rule or nd < len(rule):
-        return None
-    return nd - len(rule) + rule.index("data")
-
-
 def state_specs(cfg: ModelConfig, state_shape, mesh):
     """Train-state tree ``{'params', 'opt': {'m', 'v', 'step'}}``: the
     reference's ``state_specs``."""

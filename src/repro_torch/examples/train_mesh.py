@@ -2,16 +2,19 @@
 the unmeshed step on the same params and batches.
 
     PYTHONPATH=src torchrun --nproc-per-node 4 \\
-        -m repro_torch.examples.train_mesh --device cpu
+        -m repro_torch.examples.train_mesh --device cpu [--arch ARCH]
 
 The step runs on every ``data x model`` mesh of the world's size (1x4,
 2x2 and 4x1 on four processes), 3 steps of 8 x 32 each.  Every rank
-draws the qwen3 smoke params (float32 compute) on the host from one
-seed, keeps its blocks (``shard_state``) and runs the step inside
-``logical_axes(mesh)``; rank 0 also runs the unmeshed step on the whole
-state and prints both losses and grad norms a step and the mesh's
-collectives (calls, and bytes this rank sent).  Raises if they differ by
-more than 1e-4 relative.
+draws the smoke params of ``--arch`` (any architecture; qwen3-0.6b by
+default; float32 compute) on the host from one seed, keeps its blocks
+(``shard_state``) and runs the step inside ``logical_axes(mesh)``; rank 0
+also runs the unmeshed step on the whole state and prints both losses
+and grad norms a step and the mesh's collectives (calls, and bytes this
+rank sent).  Raises if they differ by more than 1e-4 relative.  An MoE
+stack runs at ``capacity_factor`` E/K, where neither step drops a token:
+below it the mesh's per-block capacity and the unmeshed step's
+per-group one drop different tokens.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import dataclasses
 
 import torch.distributed as dist
 
-from ..configs import smoke_config
+from ..configs import ARCH_IDS, smoke_config
 from ..data.pipeline import SyntheticLMData
 from ..device import stage
 from ..distributed.axes import logical_axes
@@ -32,12 +35,14 @@ from ..train.step import init_train_state, make_train_step
 STEPS, BATCH, SEQ, RTOL = 3, 8, 32, 1e-4
 
 
-def run_mesh(data_n: int, model_n: int, dev) -> list:
-    """``STEPS`` steps on a ``data_n x model_n`` mesh; returns its
-    losses."""
+def run_mesh(arch: str, data_n: int, model_n: int, dev) -> list:
+    """``STEPS`` steps of ``arch`` on a ``data_n x model_n`` mesh; returns
+    its losses."""
     mesh = make_host_mesh(data_n, model_n, device=dev.type)
-    cfg = dataclasses.replace(smoke_config("qwen3-0.6b"),
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1)
     data = SyntheticLMData(cfg, BATCH, SEQ, seed=0)
     state = shard_state(cfg, init_train_state(cfg, opt, 0, "cpu"), mesh,
@@ -49,7 +54,7 @@ def run_mesh(data_n: int, model_n: int, dev) -> list:
     for i in range(STEPS):
         batch = data.batch_at(i)
         mesh.reset_collectives()
-        with logical_axes(mesh):
+        with logical_axes(mesh, n_experts=cfg.n_experts):
             state, m = step(state, {k: stage(v, dev)
                                     for k, v in batch.items()})
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
@@ -61,8 +66,8 @@ def run_mesh(data_n: int, model_n: int, dev) -> list:
         want, want_g = float(p["loss"]), float(p["grad_norm"])
         calls = {k: (c["calls"], c["bytes"])
                  for k, c in mesh.collectives.items() if c["calls"]}
-        print(f"[train_mesh] step {i + 1} on {data_n}x{model_n}: loss "
-              f"{loss:.6f} (unmeshed {want:.6f}), grad norm {gnorm:.6f} "
+        print(f"[train_mesh] {arch} step {i + 1} on {data_n}x{model_n}: "
+              f"loss {loss:.6f} (unmeshed {want:.6f}), grad norm {gnorm:.6f} "
               f"(unmeshed {want_g:.6f}); collectives (calls, bytes this "
               f"rank sent) {calls}")
         if (abs(loss - want) > RTOL * abs(want)
@@ -77,12 +82,13 @@ def main(argv=None):
     their losses by shape."""
     ap = argparse.ArgumentParser(
         prog="torchrun ... -m repro_torch.examples.train_mesh")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (nccl, one card a process) or 'cpu' (gloo)")
     args = ap.parse_args(argv)
     dev = init_distributed(args.device)
     n = dist.get_world_size()
-    return {(d, n // d): run_mesh(d, n // d, dev)
+    return {(d, n // d): run_mesh(args.arch, d, n // d, dev)
             for d in range(1, n + 1) if n % d == 0}
 
 

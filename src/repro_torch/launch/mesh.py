@@ -19,7 +19,8 @@ gloo for ``cpu`` and nccl for ``cuda``.
 Training differentiates through collectives, so beside the in-place
 helpers of :class:`Mesh` (the serve path's) this module holds their
 autograd forms (:func:`to_model`, :func:`from_model`,
-:func:`gather_model`, :func:`split_model`, :func:`fsdp_gather`), each a
+:func:`gather_model`, :func:`split_model`, :func:`fsdp_gather`,
+:func:`all_to_all`), each a
 ``torch.autograd.Function`` whose backward is the collective that makes
 the gradients of every rank's blocks those of one device.
 """
@@ -344,6 +345,17 @@ class _SplitModel(torch.autograd.Function):
         return ctx.mesh.all_gather(g, ctx.dim, "model"), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g, ctx.axis), None, None
+
+
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, dim, axes):
@@ -400,6 +412,17 @@ def fsdp_gather(x: torch.Tensor, mesh: Mesh, dim: int, axes: Axis
     if not mesh.wide(axes):
         return x
     return _FsdpGather.apply(x, mesh, dim % x.dim(), axes)
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = "model"
+               ) -> torch.Tensor:
+    """:meth:`Mesh.all_to_all` forward; backward the same exchange of the
+    gradient (chunk ``j`` of this rank's gradient goes back to the axis
+    index ``j``, which sent it): the exchange is a permutation of the
+    ranks' chunks, and its transpose is itself."""
+    if not mesh.wide(axis):
+        return x
+    return _AllToAll.apply(x, mesh, axis)
 
 
 def _label(shape: Dict[str, int]) -> str:

@@ -86,7 +86,7 @@ wider than 1 attention takes the plain batched path (``--attn-impl``
 defaults to ``gather`` there; the kernel is refused, as in the
 reference), MoE layers dispatch expert-parallel (``distributed/moe_ep.py``),
 ``--kv-layout auto`` is refused (§ A15b) and so is a ``data`` axis wider
-than 1 (§ A14b-ii).  Both
+than 1 (§ A14b-iii).  Both
 ``--disagg`` engines get the mesh and share one set of weights.  On a
 ``model`` axis wider than 1 the weights are drawn on the host and each
 rank copies only its blocks to its device (``shard_params``), so the

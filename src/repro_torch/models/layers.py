@@ -200,31 +200,61 @@ def _moe_groups(T: int, want: int = 32) -> int:
 def moe(params, x: torch.Tensor, cfg) -> torch.Tensor:
     """Top-k capacity MoE on x [B, S, d].  Under a mesh's
     ``logical_axes`` the reference's routing to the expert-parallel path
-    (``distributed/moe_ep.py::moe_ep``): the serve decode shape [slots, 1,
-    d] goes in as [1, slots, d] when the slots split over an EP ``model``
-    axis, so each rank routes only its slots; without a mesh, or when the
-    batch does not split over the batch axes, the local grouped path.
-    The port's one mesh caller, the serve step, runs on a 1-wide ``data``
-    axis (the serve ``data`` axis and MoE training on a mesh are ROADMAP.md
-    § A14b-ii), where x is the whole batch."""
-    from ..distributed.axes import _AXES
+    (``distributed/moe_ep.py::moe_ep``) when the batch splits over the
+    batch axes: the serve decode shape [slots, 1, d] goes in as [1, slots,
+    d] when the slots split over an EP ``model`` axis, so each rank routes
+    only its slots, and ``moe_legacy_dispatch`` merges B·S first.  Without
+    a mesh, or when the batch does not split, the local grouped path.
+
+    ``x`` is this rank's block over the batch axes under the train step
+    (which says whether it cut the batch: ``axes.train_batch_cut``) and
+    the whole batch in serving, whose ``data`` axis is 1 wide.  A batch
+    the train step left whole takes the local path with the experts
+    gathered whole over ``model`` (:func:`_whole_experts`)."""
+    from ..distributed.axes import _AXES, train_batch_cut, train_mesh
+    from ..distributed.sharding import batch_axes_for
     ctx = _AXES.get()
     B, S, d = x.shape
-    if ctx is not None and B % ctx["mesh"].shape["data"] == 0:
-        from ..distributed.moe_ep import moe_ep
+    if ctx is not None:
         mesh = ctx["mesh"]
-        n_b, n_m = mesh.shape["data"], mesh.shape["model"]
-        ep = cfg.n_experts % n_m == 0 and n_m > 1
-        if cfg.moe_legacy_dispatch:
-            # the reference's old path: B·S merged before the dispatch
-            s_div = n_m if (ep and S % n_m == 0) else 1
-            xm = x.reshape(n_b * s_div, (B // n_b) * (S // s_div), d)
-            return moe_ep(params, xm, cfg, mesh).reshape(B, S, d)
-        if S == 1 and B > 1 and n_b == 1 and ep and B % n_m == 0:
-            return moe_ep(params, x.reshape(1, B, d), cfg, mesh
-                          ).reshape(B, S, d)
-        return moe_ep(params, x, cfg, mesh)
+        n_b = mesh.axis_size(batch_axes_for(mesh))
+        split = train_batch_cut() if train_mesh() is not None \
+            else B % n_b == 0
+        if split:
+            from ..distributed.moe_ep import moe_ep
+            n_m = mesh.shape["model"]
+            ep = cfg.n_experts % n_m == 0 and n_m > 1
+            if cfg.moe_legacy_dispatch:
+                # the reference's old path: B·S merged before the dispatch
+                # (this rank's rows of the reference's global reshape)
+                s_div = n_m if (ep and S % n_m == 0) else 1
+                xm = x.reshape(s_div, (B * S) // s_div, d)
+                return moe_ep(params, xm, cfg, mesh).reshape(B, S, d)
+            if S == 1 and B > 1 and n_b == 1 and ep and B % n_m == 0:
+                return moe_ep(params, x.reshape(1, B, d), cfg, mesh
+                              ).reshape(B, S, d)
+            return moe_ep(params, x, cfg, mesh)
+        params = _whole_experts(params, cfg)
     return _moe_local(params, x.reshape(B * S, d), cfg).reshape(B, S, d)
+
+
+def _whole_experts(params, cfg):
+    """The experts' weights whole over ``model`` (``gather_model``: its
+    backward keeps this rank's block, every ``model`` rank running the
+    same local path) under the train step on a mesh; else ``params``."""
+    from ..distributed.axes import train_mesh
+    from ..launch.mesh import gather_model
+    m = train_mesh()
+    if m is None:
+        return params
+    out = dict(params)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff or cfg.d_ff
+    whole = {"w1": (E, d, f), "w3": (E, d, f), "w2": (E, f, d)}
+    for k, shape in whole.items():
+        for dim, n in enumerate(shape):
+            if out[k].shape[dim] != n:
+                out[k] = gather_model(out[k], m, dim)
+    return out
 
 
 def moe_dispatch(xg: torch.Tensor, router: torch.Tensor, K: int, E: int,

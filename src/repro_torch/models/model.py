@@ -29,7 +29,7 @@ RG-LRU (``rglru.py``) and Mamba-2 (``ssm.py``) mixers, dense and top-k
 MoE channel mixers.  A product of a bfloat16 activation and a float32
 weight computes in float32, as in the reference (``quantized.promoted``).
 Gradients are autograd's over these ops; with ``cfg.remat`` a train
-forward that records them runs each decoder layer under
+forward that records them runs each decoder and encoder layer under
 ``torch.utils.checkpoint`` (``remat_policy="dots"`` keeps the outputs of
 the 2-D matmuls), which changes memory only.
 """
@@ -43,11 +43,12 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..device import resolve_device
-from ..distributed.axes import spmd_train, train_mesh
+from ..distributed.axes import in_scope, train_mesh, train_scope
+from ..distributed.sharding import param_specs
 from ..tree import leaves
 from .config import LayerSpec, ModelConfig
 from .layers import attention, mlp, moe, rms_norm, rope
-from .quantized import matmul, qmm
+from .quantized import qmm
 from .tp import (col_input, col_inputs, fsdp_layer, gather_cols,
                  row_parallel, vocab_embed)
 from .rglru import init_rglru_params, rglru_decode_step, rglru_forward
@@ -369,21 +370,29 @@ def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, p, h: torch.Tensor,
 
 def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
                 xv: torch.Tensor) -> torch.Tensor:
-    """x [B, S, d] attends, unmasked, to the encoder's K/V [B, KV, F, hd]."""
+    """x [B, S, d] attends, unmasked, to the encoder's K/V [B, KV, F, hd].
+    Under the train step on a mesh ``wq`` may be a column block (gathered
+    whole, ``tp.gather_cols``) and ``wo`` a row block
+    (``tp.row_parallel``), as in self-attention."""
     B, S, _ = x.shape
-    q = qmm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim
-                                ).transpose(1, 2)
+    width = cfg.n_heads * cfg.head_dim
+    q = gather_cols((qmm(col_input(x, p["wq"], width), p["wq"]),),
+                    (width,))[0]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim).transpose(1, 2)
     o = attention(q, xk, xv, causal=False, window=0)
-    return qmm(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+    return row_parallel(o.transpose(1, 2).reshape(B, S, -1), p["wo"], width)
 
 
 def _make_cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
-    """The cross-attention's K/V [B, KV, F, hd] of the encoder output."""
+    """The cross-attention's K/V [B, KV, F, hd] of the encoder output (on
+    a train mesh from column blocks, gathered whole in one all-gather)."""
     B, F_, _ = enc_out.shape
     KV, hd = cfg.n_kv, cfg.head_dim
-    xk = qmm(enc_out, p["wk"]).reshape(B, F_, KV, hd).transpose(1, 2)
-    xv = qmm(enc_out, p["wv"]).reshape(B, F_, KV, hd).transpose(1, 2)
-    return xk, xv
+    ws, wholes = (p["wk"], p["wv"]), (KV * hd, KV * hd)
+    xk, xv = gather_cols([qmm(e, w) for e, w in zip(
+        col_inputs(enc_out, ws, wholes), ws)], wholes)
+    return (xk.reshape(B, F_, KV, hd).transpose(1, 2),
+            xv.reshape(B, F_, KV, hd).transpose(1, 2))
 
 
 def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
@@ -493,15 +502,41 @@ def _remat_kwargs(policy: str) -> Dict:
     return kw
 
 
-def _train_layer(spec, cfg, p, x, enc_out, mesh=None):
-    """One layer of the train forward.  Under the train step on a mesh
-    (``mesh``, the one the step runs on) its FSDP blocks are gathered
-    first; a remat replay re-enters the step's scope with that mesh (the
-    replay may run on autograd's device thread) and so gathers again, in
+@functools.lru_cache(maxsize=8)
+def _train_specs(cfg: ModelConfig, mesh):
+    """``param_specs`` of ``cfg``'s whole params on ``mesh`` (None without
+    a mesh): what :func:`tp.fsdp_layer` reads a layer's FSDP dims from."""
+    return None if mesh is None else param_specs(cfg, params_shape(cfg), mesh)
+
+
+def _train_layer(spec, cfg, p, x, enc_out, scope, specs=None):
+    """One layer of the train forward, in ``scope`` (the caller's
+    ``axes.train_scope``).  Under the train step on a mesh its FSDP
+    blocks are gathered first (``specs``: the layer's param specs); a
+    remat replay re-enters the caller's scope (the replay may run on
+    autograd's device thread, which sees no context of the caller's: the
+    MoE's route and the blocked forms read it) and so gathers again, in
     the same order on every rank."""
-    with spmd_train(mesh):
-        return apply_layer(spec, cfg, fsdp_layer(p, cfg), x, mode="train",
-                           enc_out=enc_out)[0]
+    with in_scope(scope):
+        return apply_layer(spec, cfg, fsdp_layer(p, specs, cfg), x,
+                           mode="train", enc_out=enc_out)[0]
+
+
+def _train_rematted(fn, remat_kw, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat_kw``
+    is given."""
+    if remat_kw is None:
+        return fn(*args)
+    return torch_checkpoint.checkpoint(fn, *args, **remat_kw)
+
+
+def _remat(cfg: ModelConfig, mode: str, x: torch.Tensor, params):
+    """The remat arguments of a forward: None unless ``cfg.remat`` and
+    autograd records a train forward."""
+    remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
+             and (x.requires_grad
+                  or any(t.requires_grad for t in leaves(params))))
+    return _remat_kwargs(cfg.remat_policy) if remat else None
 
 
 def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
@@ -517,11 +552,9 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
     train step on a mesh each train layer gathers its FSDP blocks first
     (``_train_layer``)."""
     stage_list = stage_list or cfg.stages()
-    remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
-             and (x.requires_grad
-                  or any(t.requires_grad for t in leaves(stages_params))))
-    remat_kw = _remat_kwargs(cfg.remat_policy) if remat else None
+    remat_kw = _remat(cfg, mode, x, stages_params)
     mesh = train_mesh() if mode == "train" else None
+    scope, specs = train_scope(), _train_specs(cfg, mesh)
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
         layers = [_per_layer(sp[i], stage.count)
                   for i in range(len(stage.period))]
@@ -531,13 +564,11 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
         for j in range(stage.count):
             for i, spec in enumerate(stage.period):
                 pp = layers[i][j]
-                if remat:
-                    x = torch_checkpoint.checkpoint(
-                        _train_layer, spec, cfg, pp, x, enc_out, mesh,
-                        **remat_kw)
-                    continue
-                if mesh is not None:
-                    x = _train_layer(spec, cfg, pp, x, enc_out, mesh)
+                if remat_kw is not None or mesh is not None:
+                    x = _train_rematted(
+                        _train_layer, remat_kw, spec, cfg, pp, x, enc_out,
+                        scope, None if specs is None else
+                        specs["stages"][si][i])
                     continue
                 cc = None if caches is None else layer_caches[i][j]
                 x, nc = apply_layer(spec, cfg, pp, x, mode=mode, cache=cc,
@@ -579,42 +610,36 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return gather_cols((y,), (cfg.vocab,))[0].float()
 
 
-def check_train_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise unless ``cfg`` trains on ``mesh``: a mesh wider than one
-    device takes only attention stacks with dense MLPs (one device takes
-    every stack, through the plain forms)."""
-    if mesh is None or mesh.size == 1:
-        return
-    kinds = {sp.kind for st in cfg.stages() for sp in st.period}
-    what = [w for w, bad in (
-        ("MoE", any(sp.moe for st in cfg.stages() for sp in st.period)),
-        ("RG-LRU", "rglru" in kinds), ("Mamba-2", "mamba" in kinds),
-        ("encoder-decoder", cfg.is_encdec),
-        ("vision", bool(cfg.n_vis_tokens))) if bad]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name} has {', '.join(what)} layers or inputs: training "
-            f"on a {'x'.join(map(str, mesh.shape.values()))} mesh takes "
-            f"only attention stacks with dense MLPs (ROADMAP.md § A14b-ii "
-            f"brings MoE, RG-LRU, Mamba-2, encoder-decoder and vision "
-            f"stacks)")
-
-
-def _run_encoder(cfg: ModelConfig, params,
-                 frames: torch.Tensor) -> torch.Tensor:
-    """Whisper-style encoder over stub frame embeddings [B, F, d]:
-    bidirectional attention with RoPE, a plain ``@ wo`` and a gelu MLP
-    per layer, then the encoder's final norm."""
-    cdt = _cdt(cfg)
-    x = frames.to(cdt)
-    for p in _per_layer(params["encoder"]["stages"][0][0], cfg.n_enc_layers):
+def _encoder_layer(cfg: ModelConfig, p, x: torch.Tensor, scope,
+                   specs=None) -> torch.Tensor:
+    """One encoder layer, in ``scope``: bidirectional attention with RoPE
+    and a gelu MLP, in the train step's blocked forms on a mesh (its FSDP
+    blocks gathered first, as in :func:`_train_layer`)."""
+    with in_scope(scope):
+        p = fsdp_layer(p, specs, cfg)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         B, S, _ = h.shape
         q, k, v = _qkv(cfg, p["attn"], h, torch.arange(S, device=h.device))
         o = attention(q, k, v, causal=False, window=0)
-        x = x + matmul(o.transpose(1, 2).reshape(B, S, -1), p["attn"]["wo"])
+        x = x + row_parallel(o.transpose(1, 2).reshape(B, S, -1),
+                             p["attn"]["wo"], cfg.n_heads * cfg.head_dim)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = (x + mlp(p["mlp"], h2, "gelu", cfg.d_ff)).to(cdt)
+        return (x + mlp(p["mlp"], h2, "gelu", cfg.d_ff)).to(_cdt(cfg))
+
+
+def _run_encoder(cfg: ModelConfig, params,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings [B, F, d]: each
+    layer (:func:`_encoder_layer`, under remat as the decoder's layers
+    are), then the encoder's final norm."""
+    enc = params["encoder"]["stages"][0][0]
+    x = frames.to(_cdt(cfg))
+    remat_kw = _remat(cfg, "train", x, enc)
+    scope, specs = train_scope(), _train_specs(cfg, train_mesh())
+    for p in _per_layer(enc, cfg.n_enc_layers):
+        x = _train_rematted(_encoder_layer, remat_kw, cfg, p, x, scope,
+                            None if specs is None else
+                            specs["encoder"]["stages"][0][0])
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
@@ -629,7 +654,6 @@ def _inputs(cfg: ModelConfig, params, batch: Dict):
 def forward_train(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
     """batch: tokens [B, S'] (+ audio_frames / vision_embeds) → logits
     [B, S, V] (S = n_vis_tokens + S' for vision stacks)."""
-    check_train_mesh(cfg, train_mesh())
     x, enc_out = _inputs(cfg, params, batch)
     x, _ = run_stages(cfg, params["stages"], x, mode="train",
                       enc_out=enc_out)

@@ -23,6 +23,16 @@ column blocks and ``out`` a row block over ``model``, so each rank
 updates its block of the width; the gates' dense ``[w, w]`` products take
 the whole conv output (one all-gather), and ``out`` ends in one
 all-reduce.
+
+Under the train step on a mesh (``axes.train_mesh``) the forward keeps
+the activations between collectives whole and the same on every
+``model`` rank (``models/tp.py``): the two input branches are column
+blocks, the conv runs on the recurrent branch's block (``conv_w`` is cut
+on its channels), and both branches are gathered whole in one
+all-gather; the gate products by ``w_a``/``w_i``'s column blocks are
+gathered whole in another, so the scan runs whole, and ``out`` takes
+the recurrence's block through ``split_model``.  Off a train mesh each of
+those helpers is the plain op.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ import torch.nn.functional as F
 
 from ..distributed.axes import to_block, to_whole
 from .quantized import matmul
-from .tp import row_parallel
+from .tp import col_inputs, gather_cols, row_parallel
 
 RGLRU_C = 8.0
 
@@ -99,13 +109,20 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def rglru_forward(params, x: torch.Tensor, cfg):
     """x [B, S, d] → (y [B, S, d], h_final [B, w], conv_state)."""
-    xb = matmul(x, params["in_x"])
-    gate = matmul(x, params["in_gate"])
-    xb, conv_state = _conv(xb, params["conv_w"])
-    a, b = _gates(params, xb, cfg.rnn_width or cfg.d_model)  # [B, S, w]
-    h = linear_scan(a, b)
+    w = cfg.rnn_width or cfg.d_model
+    xi, xg = col_inputs(x, (params["in_x"], params["in_gate"]), (w, w))
+    xb, conv_state = _conv(matmul(xi, params["in_x"]), params["conv_w"])
+    xb, gate = gather_cols((xb, matmul(xg, params["in_gate"])), (w, w))
+    wa, wi = params["w_a"], params["w_i"]
+    xa, xi = col_inputs(xb, (wa, wi), (w, w))
+    ra, ri = gather_cols((matmul(xa, wa), matmul(xi, wi)), (w, w))
+    r, i = torch.sigmoid(ra).float(), torch.sigmoid(ri).float()
+    log_a = -RGLRU_C * F.softplus(params["lambda_p"]) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xb.float())
+    h = linear_scan(a, b)                                      # [B, S, w]
     y = h * F.gelu(gate.float(), approximate="tanh")
-    return matmul(y.to(x.dtype), params["out"]), h[:, -1], conv_state
+    return row_parallel(y.to(x.dtype), params["out"], w), h[:, -1], conv_state
 
 
 def rglru_decode_step(params, x: torch.Tensor, h: torch.Tensor,

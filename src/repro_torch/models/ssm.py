@@ -20,6 +20,15 @@ the recurrence runs on the state's heads (a block in a sharded pool, all
 of them in a replicated one); the gated norm spans all of ``d_inner``, so
 ``y`` is gathered before it, and ``out_proj``'s row block ends in one
 all-reduce.
+
+Under the train step on a mesh (``axes.train_mesh``) the forward keeps
+the activations between collectives whole and the same on every
+``model`` rank (``models/tp.py``): ``in_proj``'s column block of the
+product is gathered whole before the split, ``conv_w``'s channel block
+is gathered whole, so the conv, the chunked scan, ``D`` and the gated
+norm run whole, and ``out_proj`` takes ``y``'s block through
+``split_model`` (a row block).  Off a train mesh each of those helpers
+is the plain op.
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ import torch.nn.functional as F
 
 from ..distributed.axes import to_block, to_whole
 from .quantized import matmul
-from .tp import row_parallel
+from .tp import col_input, gather_cols, row_parallel
 
 
 def ssm_dims(cfg) -> Tuple[int, int, int]:
@@ -93,9 +102,13 @@ def mamba_forward(params, x: torch.Tensor, cfg):
     N = cfg.ssm_state
     Q = min(cfg.ssm_chunk, S)
     pad = (-S) % Q
-    proj = matmul(x, params["in_proj"])
+    n_proj = 2 * d_inner + 2 * N + H
+    w_in = params["in_proj"]
+    proj = gather_cols((matmul(col_input(x, w_in, n_proj), w_in),),
+                       (n_proj,))[0]
     z, xBC, dt_raw = _split_proj(cfg, proj)
-    xBC, conv_state = _conv(xBC, params["conv_w"])
+    conv_w = gather_cols((params["conv_w"],), (d_inner + 2 * N,))[0]
+    xBC, conv_state = _conv(xBC, conv_w)
     xs, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])     # [B,S,H]
     A = -torch.exp(params["A_log"])                         # [H]
@@ -111,11 +124,15 @@ def mamba_forward(params, x: torch.Tensor, cfg):
     dA = dtc * A                                            # [B,nc,Q,H]
     seg = torch.cumsum(dA, dim=2)                           # [B,nc,Q,H]
 
-    # intra-chunk (quadratic within Q)
+    # intra-chunk (quadratic within Q).  Masked before the exp: above the
+    # diagonal rel is the decay's inverse, which overflows at a long chunk
+    # (the published 256), and the gradient of where(causal, exp(rel), 0)
+    # is then 0 x inf = NaN there (the reference's fault, ROADMAP.md § C6)
     rel = seg[:, :, :, None] - seg[:, :, None]              # [B,nc,Q,Q,H]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    L = torch.exp(torch.where(causal[None, None, :, :, None], rel,
+                              float("-inf")))
     CB = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)            # [B,nc,Q,Q]
     M = CB[..., None] * L                                   # [B,nc,Q,Q,H]
     y_diag = torch.einsum("bcqkh,bckh,bckhp->bcqhp", M, dtc, xh)
@@ -139,7 +156,8 @@ def mamba_forward(params, x: torch.Tensor, cfg):
         Bsz, Sp, H, P)[:, :S]
     y = y.reshape(Bsz, S, d_inner)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
-    return matmul(y, params["out_proj"]).to(x.dtype), h, conv_state
+    return (row_parallel(y, params["out_proj"], d_inner).to(x.dtype), h,
+            conv_state)
 
 
 def mamba_decode_step(params, x: torch.Tensor, state: torch.Tensor,

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..distributed.axes import model_axis, to_block, to_whole, train_mesh
-from ..distributed.sharding import fsdp_axes_of, fsdp_dim
+from ..distributed.sharding import fsdp_axes_of
 from ..launch.mesh import (fsdp_gather, from_model, gather_model,
                            split_model, to_model)
 from .quantized import qmm
@@ -133,28 +133,24 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
     return mesh.all_reduce(rows.contiguous())
 
 
-def fsdp_layer(p, cfg):
+def fsdp_layer(p, specs, cfg):
     """One layer's params with every FSDP block gathered whole over the
     FSDP axes (``fsdp_gather``: reduce-scatter backward), under the train
-    step on a mesh; elsewhere ``p`` itself.  A leaf is a block when its
-    FSDP dim (``sharding.fsdp_dim``, a d_model dim on the dense and
-    attention weights) is shorter than ``d_model``."""
+    step on a mesh; elsewhere ``p`` itself.  ``specs`` is the layer's
+    subtree of ``sharding.param_specs`` over the stacked params (each
+    spec's first entry is the stack dim, which ``p`` has dropped): a leaf
+    is a block of the dim its spec cuts over the FSDP axes, whatever that
+    dim is (d_model on the projections, ``rnn_width`` on RG-LRU's
+    ``w_a``/``w_i``), and whole where the spec cuts none."""
     m = train_mesh()
     axes = None if m is None else fsdp_axes_of(cfg, m)
     if m is None or not m.wide(axes):
         return p
-    n = m.axis_size(axes)
 
-    def walk(name, leaf):
+    def walk(leaf, spec):
         if isinstance(leaf, dict):
-            return {k: walk(k, v) for k, v in leaf.items()}
-        dim = fsdp_dim(name, leaf.dim())
-        if dim is None or leaf.shape[dim] == cfg.d_model:
-            return leaf
-        if leaf.shape[dim] * n != cfg.d_model:
-            raise ValueError(f"{name} {tuple(leaf.shape)}: dim {dim} is "
-                             f"neither d_model {cfg.d_model} nor its block "
-                             f"over {axes}")
-        return fsdp_gather(leaf, m, dim, axes)
+            return {k: walk(v, spec[k]) for k, v in leaf.items()}
+        dims = [i for i, ax in enumerate(spec[1:]) if ax == axes]
+        return fsdp_gather(leaf, m, dims[0], axes) if dims else leaf
 
-    return walk("", p)
+    return walk(p, specs)

@@ -71,7 +71,7 @@ A ``1 x 1`` mesh makes no collective; it runs the same ops as
 ``mesh=None`` except that an MoE layer dispatches its tokens in one group
 where the local path takes many.  Refused, each naming the ROADMAP.md
 item that lifts it: the kernel on a ``model`` axis wider than 1 (as in
-the reference), a ``data`` axis wider than 1 (§ A14b-ii), int8 weights and
+the reference), a ``data`` axis wider than 1 (§ A14b-iii), int8 weights and
 ``kv_layout="auto"`` on a ``model`` axis wider than 1 (§ A15b).
 """
 from __future__ import annotations
@@ -364,7 +364,7 @@ def _check_mesh(params, mesh, dev: torch.device, attn_impl: str,
     if mesh.shape["data"] > 1:
         raise NotImplementedError(
             f"a 'data' axis of {mesh.shape['data']} in serving is not "
-            f"ported: the serve data axis comes with ROADMAP.md § A14b-ii")
+            f"ported: the serve data axis comes with ROADMAP.md § A14b-iii")
     if kv_layout == "auto":
         if n_model > 1:
             raise NotImplementedError(

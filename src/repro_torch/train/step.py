@@ -167,7 +167,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         baxes = mesh.wide(batch_axes_for(mesh))
         n_b = torch.full((), mesh.axis_size(baxes), dtype=torch.float32,
                          device=leaves(params)[0].device)
-        with spmd_train(mesh):
+        cut = not baxes or bool(b_sh["tokens"].blocks())
+        with spmd_train(mesh, batch_cut=cut):
             loss, grads = _grads(lambda p, b: loss_fn(p, b) / n_b, params,
                                  local, accum)
         if mesh not in specs:

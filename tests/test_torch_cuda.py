@@ -1351,7 +1351,8 @@ def test_train_step_on_1x1_mesh_bit_equal_unmeshed(dev, tmp_path,
 
     entered, spmd_train = [], step_mod.spmd_train
     monkeypatch.setattr(step_mod, "spmd_train",
-                        lambda m: entered.append(m) or spmd_train(m))
+                        lambda m, **kw: entered.append(m)
+                        or spmd_train(m, **kw))
     cfg = smoke_config("qwen3-0.6b")
     opt = AdamWConfig(lr=1e-3, warmup_steps=1)
     mesh = make_host_mesh(1, 1, device="cuda")
@@ -1382,3 +1383,53 @@ def test_train_step_on_1x1_mesh_bit_equal_unmeshed(dev, tmp_path,
     want = restore_pytree(plain, tmp_path, 3)
     assert all(a.device == dev and torch.equal(a, b)
                for a, b in zip(leaves(back), leaves(want)))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b"])
+def test_train_stack_on_1x1_mesh_matches_unmeshed(dev, arch):
+    """The MoE (mixtral) and Mamba-2 smoke steps on the card inside
+    ``logical_axes`` of a 1x1 mesh against the unmeshed step, 2 steps at
+    float32 compute from the same params and batches, no collective:
+    Mamba-2 bit-equal; the MoE (one dispatch group through ``moe_ep``
+    where the unmeshed step takes the local path's groups, at
+    ``capacity_factor`` E/K, where neither drops a token) with loss and
+    grad norm within 1e-5 relative, params within 4e-5 (Adam moves an
+    element whose gradient is at rounding level by up to its rate either
+    way, and the two steps' rates, 3e-6 and 6e-6, bound that at 2 x
+    1.8e-5) and each m and v leaf within 1e-4 of its norm."""
+    import dataclasses
+
+    from repro_torch.distributed.axes import logical_axes
+    from repro_torch.distributed.sharding import shard_state
+
+    cfg = dataclasses.replace(smoke_config(arch), compute_dtype="float32")
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    opt = AdamWConfig()
+    mesh = make_host_mesh(1, 1, device="cuda")
+    plain = init_train_state(cfg, opt, 0, dev)
+    meshed = shard_state(cfg, init_train_state(cfg, opt, 0, dev), mesh, dev)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLMData(cfg, 8, 32, seed=0)
+    for i in range(2):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(i).items()}
+        plain, m_plain = step(plain, batch)
+        with logical_axes(mesh, n_experts=cfg.n_experts):
+            meshed, m_mesh = step(meshed, batch)
+        if not cfg.n_experts:
+            assert all(torch.equal(m_plain[k], m_mesh[k]) for k in m_plain)
+        for k in ("loss", "grad_norm"):
+            a, b = float(m_plain[k]), float(m_mesh[k])
+            assert abs(a - b) <= 1e-5 * abs(a), (k, a, b)
+    assert all(c["calls"] == 0 for c in mesh.collectives.values())
+    if not cfg.n_experts:
+        assert all(torch.equal(a, b) for a, b in zip(leaves(plain),
+                                                     leaves(meshed)))
+        return
+    for a, b in zip(leaves(meshed["params"]), leaves(plain["params"])):
+        assert float((a - b).abs().max()) <= 4e-5
+    for k in ("m", "v"):
+        for a, b in zip(leaves(meshed["opt"][k]), leaves(plain["opt"][k])):
+            assert float((a - b).norm() / b.norm()) <= 1e-4

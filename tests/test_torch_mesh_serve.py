@@ -339,7 +339,7 @@ def test_mesh_placement_is_a_block_property(spawned, world):
 
 @pytest.mark.parametrize("case,exc,item", [
     ("kernel", "ValueError", "kernel"),
-    ("data", "NotImplementedError", "A14b-ii"),
+    ("data", "NotImplementedError", "A14b-iii"),
     ("auto", "NotImplementedError", "A15b")])
 @pytest.mark.parametrize("world", WORLDS)
 def test_mesh_refusals(spawned, world, case, exc, item):

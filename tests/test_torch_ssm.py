@@ -80,3 +80,25 @@ def test_decode_steps_equal_the_forward():
         torch.testing.assert_close(yt[:, 0], y[:, t], **TOL)
     torch.testing.assert_close(st, st_end, **TOL)
     torch.testing.assert_close(conv, c_end, **TOL)
+
+
+def test_long_chunk_forward_matches_reference_and_grads_are_finite():
+    """At the published ``ssm_chunk`` of 256 the intra-chunk decay's
+    inverse overflows above the diagonal: the forward still equals the
+    reference's, and the port's gradients are finite where the
+    reference's ``where(causal, exp(rel), 0)`` gives NaN (ROADMAP.md §
+    C6: the port masks before the exp)."""
+    import dataclasses
+    cfg, jp, tp = _params()
+    cfg = dataclasses.replace(cfg, ssm_chunk=256)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1, 256, cfg.d_model)).astype(np.float32)
+    jy, _, _ = j_forward(jp, jnp.asarray(x), cfg)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    ty, _, _ = ts.mamba_forward(tp, xt, cfg)
+    _close(ty.detach(), jy, "y")
+    (gx,) = torch.autograd.grad(ty.sum(), xt)
+    jgx = jax.grad(lambda v: js.mamba_forward(jp, v, cfg)[0].sum())(
+        jnp.asarray(x))
+    assert bool(torch.isfinite(gx).all())
+    assert bool(jnp.isnan(jgx).any())
