@@ -161,7 +161,12 @@ Phases (any failure exits non-zero and prints no result line):
               kernel engine on ``make_host_mesh(1, 1)``): tokens equal to
               phase 4's, launches 28 x token steps, no collective; one
               horizon under ``set_sync_debug_mode("error")``; a horizon's
-              host ms beside phase 4's.  It runs after 4k, before 4i;
+              host ms beside phase 4's and in turns with an unmeshed
+              engine's; one token step of each profiled, their kernel
+              counts equal (the ``data``-axis code launches nothing at
+              width 1); the launcher asked for ``--mesh-shape 2x1`` in
+              one process (and with ``--attn-impl kernel``) exits 2
+              naming what it needs.  It runs after 4k, before 4i;
  4i. legacy — phase 4's requests through the launcher's per-sequence path
               (``--legacy``: ``serve/paged.py::PagedServer``, attention
               through ``paged_decode_attention`` on the kernel): tokens
@@ -788,7 +793,9 @@ def phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms):
     4, (full layers) x token steps kernel launches, no collective; one
     horizon under ``set_sync_debug_mode("error")`` and its host ms beside
     phase 4's; then horizons of an unmeshed engine on the same params and
-    of the mesh engine in turns.  Returns the launches."""
+    of the mesh engine in turns; one token step of each profiled twice in
+    turns, their kernel counts equal; the launcher's refusals of a 2x1
+    mesh in one process.  Returns the launches."""
     from repro_torch.serve.engine import PagedEngine
     box = {}
 
@@ -830,7 +837,76 @@ def phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms):
           f"mesh, plain) x 4 on the same params: plain {turns['plain']}, "
           f"mesh {turns['mesh']}; medians {med['plain']:.3f} and "
           f"{med['mesh']:.3f}, mesh / plain {med['mesh'] / med['plain']:.4f}")
+    # the profiler can miss launches at the start of the step it reads
+    # (one reading here lost 110 of 2,675), never add one: each engine's
+    # largest of two readings, taken in turns, is its count
+    t0 = time.perf_counter()
+    engines = {"plain": plain, "mesh": engine}
+    readings = {"plain": [], "mesh": []}
+    for name in ("plain", "mesh", "mesh", "plain"):
+        readings[name].append(_step_kernels(torch, engines[name]))
+    counts = {name: max(r) for name, r in readings.items()}
+    if counts["mesh"] != counts["plain"]:
+        _fail(f"[mesh] a token step of the 1x1 mesh engine launched "
+              f"{counts['mesh']} kernels, the unmeshed engine's "
+              f"{counts['plain']} (readings {readings})")
+    print(f"[mesh] {card}: one token step (decode over "
+          f"{engine.max_seqs} slots) profiled in turns (plain, mesh, mesh, "
+          f"plain): readings {readings}; {counts['mesh']} kernels on the "
+          f"1x1 mesh engine, {counts['plain']} on the unmeshed engine "
+          f"(mesh / plain {counts['mesh'] / counts['plain']:.4f})")
+    _mesh_refusals()
+    print(f"[mesh] the token-step profiles and the refusals took "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _step_kernels(torch, eng):
+    """The CUDA kernels of one token step (``decode`` over every slot,
+    after a 4-token prefill) from the profiler's kernel events.  Frees the
+    slots it took."""
+    S, dev = eng.max_seqs, eng.device
+    for s in range(S):
+        eng.alloc.reserve_span(eng.alloc.alloc(s), 4, 2)
+    eng.prefill_chunk(
+        torch.arange(1, 5, dtype=torch.int32, device=dev).repeat(S, 1),
+        torch.full((S,), 4, dtype=torch.int32, device=dev))
+    toks = torch.full((S,), 7, dtype=torch.int32, device=dev)
+    mask = torch.ones((S,), dtype=torch.bool, device=dev)
+    _, kernels = _kernel_busy(torch, lambda: eng.decode(toks, mask))
+    for blk in list(eng.alloc.blocks.values()):
+        eng.alloc.free(blk)
+    if not kernels:
+        _fail("[mesh] the profiler saw no CUDA kernel of a token step")
+    return sum(c for _, c, _ in kernels)
+
+
+def _mesh_refusals():
+    """The launcher asked for a 2x1 mesh in this one process: without
+    ``torchrun``'s two processes it exits 2 naming them, and with
+    ``--attn-impl kernel`` it exits 2 naming the kernel; neither leaves a
+    process group behind."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    from repro_torch.launch import serve
+    argv = ["--arch", "qwen3-0.6b", "--device", "cuda", "--mesh-shape", "2x1"]
+    for extra, want in (([], "runs 2 processes"),
+                        (["--attn-impl", "kernel"],
+                         "--attn-impl kernel is not supported")):
+        err, code = io.StringIO(), None
+        try:
+            with contextlib.redirect_stderr(err):
+                serve.main(argv + extra)
+        except SystemExit as e:
+            code = e.code
+        msg = err.getvalue().strip().splitlines()
+        if code != 2 or want not in err.getvalue() or dist.is_initialized():
+            _fail(f"[mesh] the launcher with {argv + extra} in one process "
+                  f"exited {code} ({msg[-1:]}), not 2 naming {want!r}")
+        print(f"[mesh] launcher {' '.join(argv[-2:] + extra)} in one "
+              f"process: exit 2, {msg[-1]}")
 
 
 # -- phase 4i: the legacy per-sequence path ---------------------------------

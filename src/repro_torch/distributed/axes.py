@@ -8,30 +8,32 @@ is active; 'seq' → sequence sharding for long-context decode.  Outside a
 
 The reference's ``constrain`` asks GSPMD for a layout.  The port runs one
 process per mesh device, so a tensor here is either whole on every rank
-or this rank's block of one dim, and :func:`constrain` *gathers* (or, for
-the free direction, slices) ``x`` into the named layout: a named dim whose
-axis divides its whole size ends as this rank's block, every other dim
-ends whole.  Gathers are collectives of the mesh and are counted there.
-Only the ``model`` axis carries activation blocks (a ``data`` axis wider
-than 1 is refused in serving, and the train step cuts its batch itself),
-so a block is always a ``model`` block.
+or this rank's block of a dim, and :func:`constrain` *slices* (no
+communication) or *gathers* ``x`` into the named layout: a named dim
+whose axes divide its whole size ends as this rank's block, every other
+dim ends whole.  Gathers are collectives of the mesh and are counted
+there.  Two axes carry activation blocks: ``model`` (the
+tensor-parallel products' heads, hidden and vocab blocks) and the batch
+axes, which the serve engine cuts its slot rows over (a dim named
+``batch``; the train step cuts its batch itself).  A dim the axes do not
+divide stays whole on every rank, the reference's fallback rule.
 
 The tensor-parallel helpers below (:func:`to_whole`, :func:`to_block`,
-:func:`model_sum`) are the step's forms of the same rule, and
-``models/tp.py`` builds the row-parallel product and the vocab-sharded
-lookup on them; under no scope, or on a 1-wide ``model`` axis, each is
-the plain op it replaces.  They are the serve path's in-place forms; the
-train step runs the model's forward under :func:`spmd_train`, and there
-``models/tp.py`` takes the autograd forms of ``launch/mesh.py`` instead
-(:func:`train_mesh` says which).  This module imports nothing of
+:func:`model_sum`) are the step's forms of the same rule over
+``model``, and :func:`batch_whole` gathers slot rows back over the batch
+axes; ``models/tp.py`` builds the row-parallel product and the
+vocab-sharded lookup on them; under no scope, or on a 1-wide axis, each
+is the plain op it replaces.  They are the serve path's in-place forms;
+the train step runs the model's forward under :func:`spmd_train`, and
+there ``models/tp.py`` takes the autograd forms of ``launch/mesh.py``
+instead (:func:`train_mesh` says which).  This module imports nothing of
 ``models/``.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -49,7 +51,7 @@ def spmd_train(mesh, batch_cut: bool = True):
     the plain forms.  ``batch_cut`` says whether the step cut its batch
     over the batch axes (``sharding.batch_spec`` leaves a batch whole on
     every rank when the batch ranks do not divide it), which decides the
-    MoE's route (:func:`train_batch_cut`).  A remat'd layer re-enters it
+    MoE's route (:func:`batch_cut`).  A remat'd layer re-enters it
     and the logical axes with the scope it was run in
     (:func:`train_scope`, :func:`in_scope`)."""
     tok = _TRAIN.set((mesh, bool(batch_cut))
@@ -67,11 +69,16 @@ def train_mesh():
     return None if scope is None else scope[0]
 
 
-def train_batch_cut() -> bool:
-    """Whether the train step's batch is this rank's block over the batch
-    axes (True outside a wide train scope, where no axis cuts it)."""
+def batch_cut() -> bool:
+    """Whether the batch the model sees is this rank's block over the
+    batch axes: the train step's flag under a wide train scope, else the
+    logical axes' (the serve engine's: whether the batch axes divide its
+    slots), True outside any scope."""
     scope = _TRAIN.get()
-    return True if scope is None else scope[1]
+    if scope is not None:
+        return scope[1]
+    ctx = _AXES.get()
+    return True if ctx is None else ctx["batch_cut"]
 
 
 def train_scope() -> tuple:
@@ -94,7 +101,12 @@ def in_scope(scope: tuple):
 
 
 @contextlib.contextmanager
-def logical_axes(mesh, n_experts: int = 0, seq_shard: bool = False):
+def logical_axes(mesh, n_experts: int = 0, seq_shard: bool = False,
+                 batch_cut: bool = True):
+    """The scope of the logical axes on ``mesh``.  ``batch_cut`` says
+    whether the model's batch inside is this rank's block over the batch
+    axes (:func:`batch_cut`; the serve engine passes whether the batch
+    axes divide its slots)."""
     names = set(mesh.axis_names)
     batch = tuple(a for a in ("pod", "data") if a in names)
     mapping = {
@@ -106,7 +118,8 @@ def logical_axes(mesh, n_experts: int = 0, seq_shard: bool = False):
         "seq": (("data", "model") if seq_shard and "data" in names
                 else ("model" if "model" in names else None)),
     }
-    tok = _AXES.set({"mesh": mesh, "map": mapping})
+    tok = _AXES.set({"mesh": mesh, "map": mapping,
+                     "batch_cut": bool(batch_cut)})
     try:
         yield
     finally:
@@ -124,13 +137,33 @@ def model_axis():
     return (mesh, n, mesh.coords["model"]) if n > 1 else None
 
 
-def _gather(x: torch.Tensor, dim: int, whole: int, mesh) -> torch.Tensor:
+def data_axis():
+    """(mesh, n, index) of the active batch axes (``data``, with ``pod``
+    when the mesh names it) when they are wider than 1, else None; ``n``
+    is their size and ``index`` this rank's row-major index over them."""
+    ctx = _AXES.get()
+    if ctx is None:
+        return None
+    mesh = ctx["mesh"]
+    axes = mesh.wide(_axes_of(ctx, "batch"))
+    return (mesh, mesh.axis_size(axes), mesh.axis_index(axes)) if axes \
+        else None
+
+
+def _axes_of(ctx, name: Optional[str]) -> Tuple[str, ...]:
+    """The mesh axes the logical ``name`` maps to in the scope ``ctx``."""
+    ax = ctx["map"].get(name) if name else None
+    return () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+
+
+def _gather(x: torch.Tensor, dim: int, whole: int, mesh,
+            axes=("model",)) -> torch.Tensor:
     if x.shape[dim] == whole:
         return x
-    if x.shape[dim] * mesh.shape["model"] != whole:
+    if x.shape[dim] * mesh.axis_size(axes) != whole:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} is neither whole "
-                         f"({whole}) nor a 'model' block of it")
-    return mesh.all_gather(x, dim)
+                         f"({whole}) nor a block of it over {tuple(axes)}")
+    return mesh.all_gather(x, dim, axes)
 
 
 def _slice(x: torch.Tensor, dim: int, whole: int, n: int,
@@ -145,13 +178,19 @@ def _slice(x: torch.Tensor, dim: int, whole: int, n: int,
 
 
 def constrain(x: torch.Tensor, *dims: Optional[str],
-              whole: Optional[Sequence[int]] = None) -> torch.Tensor:
+              whole: Optional[Sequence[int]] = None,
+              src: Optional[Sequence[Optional[str]]] = None
+              ) -> torch.Tensor:
     """Bring ``x`` into the named layout; no-op outside logical_axes().
 
     ``whole`` is the tensor's whole shape (default ``x.shape``: ``x`` is
     whole).  A dim named by a logical axis whose mesh axes divide its
-    whole size (the reference's fallback rule) ends as this rank's block;
-    every other dim ends whole, gathered if it was a block."""
+    whole size (the reference's fallback rule) ends as this rank's block
+    over those axes (a view); every other dim ends whole, gathered if it
+    was a block.  ``src`` names, per dim, the logical axis ``x`` holds a
+    block of where its size differs from ``whole`` (default ``model``):
+    ``constrain(rows, None, whole=(S,), src=("batch",))`` gathers slot
+    rows cut over the batch axes back whole."""
     ctx = _AXES.get()
     if ctx is None:
         return x
@@ -160,21 +199,33 @@ def constrain(x: torch.Tensor, *dims: Optional[str],
                          f"{x.dim()}-d tensor")
     mesh = ctx["mesh"]
     whole = tuple(x.shape) if whole is None else tuple(whole)
+    src = (None,) * len(dims) if src is None else tuple(src)
     for i, d in enumerate(dims):
-        ax = ctx["map"].get(d) if d else None
-        axes = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
-        n = math.prod(mesh.shape[a] for a in axes)
-        wide = [a for a in axes if mesh.shape[a] > 1]
-        if wide and whole[i] > 0 and whole[i] % n == 0:
-            if wide != ["model"]:
-                raise NotImplementedError(
-                    f"activation blocks over {wide}: only the 'model' axis "
-                    f"cuts activations (the serve 'data' axis is ROADMAP.md "
-                    f"§ A14b-iii)")
-            x = _slice(x, i, whole[i], n, mesh.coords["model"])
+        axes = mesh.wide(_axes_of(ctx, d))
+        n = mesh.axis_size(axes)
+        if axes and whole[i] > 0 and whole[i] % n == 0:
+            x = _slice(x, i, whole[i], n, mesh.axis_index(axes))
         else:
-            x = _gather(x, i, whole[i], mesh)
+            x = _gather(x, i, whole[i], mesh,
+                        mesh.wide(_axes_of(ctx, src[i] or "model")))
     return x
+
+
+def batch_whole(xs, whole: int):
+    """Tensors whose dim 0 is this rank's block over the batch axes (of
+    ``whole`` rows), whole along dim 0 with one all-gather for all of
+    them: each flattened to ``[rows, -1]``, concatenated (dtypes
+    promoted), gathered by :func:`constrain` and split back.  Tensors
+    already whole (no wide batch axis, or a batch the axes do not divide)
+    come back as they are."""
+    if data_axis() is None or xs[0].shape[0] == whole:
+        return tuple(xs)
+    flat = [x.reshape(x.shape[0], -1) for x in xs]
+    widths = [f.shape[1] for f in flat]
+    g = constrain(torch.cat(flat, 1), None, None,
+                  whole=(whole, sum(widths)), src=("batch", None))
+    return tuple(p.reshape(whole, *x.shape[1:])
+                 for p, x in zip(torch.split(g, widths, 1), xs))
 
 
 def to_whole(x: torch.Tensor, dim: int, whole: int) -> torch.Tensor:

@@ -365,8 +365,11 @@ def shardings_of(spec_tree, mesh):
 
 class ParamBlocks(dict):
     """A params tree cut to one rank's blocks by :func:`shard_params`;
-    ``mesh`` is the mesh it was cut for."""
+    ``mesh`` is the mesh it was cut for and ``specs`` the spec tree that
+    cut it (``param_specs`` of the whole tree, which the blocks' own
+    shapes could not give back)."""
     mesh: Any = None
+    specs: Any = None
 
 
 def shard_params(cfg: ModelConfig, params, mesh, device=None) -> ParamBlocks:
@@ -376,9 +379,9 @@ def shard_params(cfg: ModelConfig, params, mesh, device=None) -> ParamBlocks:
     (or kept on the host) after; a whole leaf is moved, or stays the same
     tensor."""
     dev = params["embed"].device if device is None else torch.device(device)
-    out = ParamBlocks(_cut(params, shardings_of(
-        param_specs(cfg, params, mesh), mesh), dev))
-    out.mesh = mesh
+    specs = param_specs(cfg, params, mesh)
+    out = ParamBlocks(_cut(params, shardings_of(specs, mesh), dev))
+    out.mesh, out.specs = mesh, specs
     return out
 
 

@@ -79,21 +79,25 @@ prints the plan's counts and raises if a fault stays unresolved.
 ``PagedEngine(mesh=)``): one process per device, each running this
 launcher (``torchrun --nproc-per-node N``, which sets ``RANK``,
 ``WORLD_SIZE`` and the rendezvous; gloo for ``--device cpu``, nccl for
-``cuda``).  The pools shard over ``model`` (``--kv-layout shard``) or stay
-whole on every rank (``replicate``); the page table, allocator and
-scheduler are host-global, the same on every rank.  On a ``model`` axis
-wider than 1 attention takes the plain batched path (``--attn-impl``
+``cuda``).  The weights' FSDP dim is cut over ``data`` and their heads,
+hidden and vocab dims over ``model``; each rank runs its block of the
+slots over ``data`` and gathers the new K/V and recurrent rows whole
+before they reach the pools.  The pools shard over ``model``
+(``--kv-layout shard``) or stay whole on every rank (``replicate``);
+over ``data`` they are always whole, and the page table, allocator and
+scheduler are host-global, the same on every rank.  On any mesh of more
+than one device attention takes the plain batched path (``--attn-impl``
 defaults to ``gather`` there; the kernel is refused, as in the
-reference), MoE layers dispatch expert-parallel (``distributed/moe_ep.py``),
-``--kv-layout auto`` is refused (§ A15b) and so is a ``data`` axis wider
-than 1 (§ A14b-iii).  Both
-``--disagg`` engines get the mesh and share one set of weights.  On a
-``model`` axis wider than 1 the weights are drawn on the host and each
-rank copies only its blocks to its device (``shard_params``), so the
-device never holds the whole model; the draws are then the CPU
-generator's, which on ``--device cuda`` differ from a one-card run's.
-Only rank 0 prints and writes ``--trace``; the run prints the mesh, its
-layout and placement, and the collectives each rank made.
+reference); MoE layers dispatch expert-parallel over ``model``
+(``distributed/moe_ep.py``); ``--kv-layout auto`` is refused on a
+``model`` axis wider than 1 (ROADMAP.md § A15b).  Both ``--disagg``
+engines get the mesh and share one cut tree of weights.  On a mesh of
+more than one device the weights are drawn on the host and each rank
+copies only its blocks to its device (``shard_params``), so the device
+never holds the whole model; the draws are then the CPU generator's,
+which on ``--device cuda`` differ from a one-card run's.  Only rank 0
+prints and writes ``--trace``; the run prints the mesh, its layout and
+placement, and the collectives each rank made.
 
 ``--legacy`` serves the same prompts through the per-sequence oracle
 (``serve/paged.py::PagedServer``: one token of every active request per
@@ -177,14 +181,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="'kernel' (default): the hand-written CUDA kernel "
                          "on the card, its plain twin on the CPU; 'gather': "
                          "the plain batched twin (CPU only, and the default "
-                         "and only choice on a 'model' axis wider than 1)")
+                         "and only choice on a mesh of more than one "
+                         "device)")
     ap.add_argument("--mesh-shape", default=None, metavar="DATAxMODEL",
                     help="serve on a device mesh, e.g. '1x4' = 4-way "
-                         "'model'-axis sharding: one process per device "
-                         "(torchrun --nproc-per-node 4); KV pools, ring "
-                         "frames and recurrent state shard over 'model', "
-                         "the page table, allocator and scheduler stay "
-                         "host-global")
+                         "'model'-axis sharding, '2x2' = 2 'data' ranks of 2 "
+                         "'model' ranks: one process per device (torchrun "
+                         "--nproc-per-node DATA*MODEL); each 'data' rank "
+                         "runs its block of the slots on weights FSDP-cut "
+                         "over 'data'; KV pools, ring frames and recurrent "
+                         "state shard over 'model' and are whole over "
+                         "'data'; the page table, allocator and scheduler "
+                         "stay host-global")
     ap.add_argument("--kv-layout", default="auto",
                     choices=("auto", "shard", "replicate"),
                     help="pool layout on the mesh: 'shard' over 'model' or "
@@ -277,19 +285,19 @@ def main(argv=None):
         except ValueError:
             ap.error(f"--mesh-shape must look like '1x4', got "
                      f"{args.mesh_shape!r}")
-        if model > 1:
-            if args.attn_impl == "kernel":
-                ap.error("--attn-impl kernel is not supported on a 'model' "
-                         "axis wider than 1: the paged-attention kernel "
-                         "assumes a single-device page pool. Use "
-                         "--attn-impl gather, or --mesh-shape 1x1.")
-            attn_impl = "gather"
         if data * model > 1:
+            if args.attn_impl == "kernel":
+                ap.error("--attn-impl kernel is not supported on a mesh of "
+                         "more than one device: the paged-attention kernel "
+                         "assumes a single-device page pool and slot batch. "
+                         "Use --attn-impl gather, or --mesh-shape 1x1.")
+            attn_impl = "gather"
             # every rank of `torchrun --nproc-per-node N` runs this
             try:
                 device = init_distributed(args.device)
             except RuntimeError as e:
-                ap.error(f"--mesh-shape {args.mesh_shape}: {e}")
+                ap.error(f"--mesh-shape {args.mesh_shape} runs "
+                         f"{data * model} processes, one per device: {e}")
             if dist.get_world_size() != data * model:
                 ap.error(f"--mesh-shape {args.mesh_shape} needs "
                          f"{data * model} processes but "
@@ -316,7 +324,7 @@ def main(argv=None):
               f"in {dt:.3f}s on {srv.device} ({n_out / dt:.1f} tok/s, "
               f"legacy)")
         return finished, srv, None
-    if mesh is not None and mesh.shape["model"] > 1:
+    if mesh is not None and mesh.size > 1:
         # drawn on the host, so the card holds only this rank's blocks
         params = shard_params(cfg, init_params(cfg, seed=args.seed,
                                                device="cpu"), mesh, device)

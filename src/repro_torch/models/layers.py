@@ -206,21 +206,18 @@ def moe(params, x: torch.Tensor, cfg) -> torch.Tensor:
     only its slots, and ``moe_legacy_dispatch`` merges B·S first.  Without
     a mesh, or when the batch does not split, the local grouped path.
 
-    ``x`` is this rank's block over the batch axes under the train step
-    (which says whether it cut the batch: ``axes.train_batch_cut``) and
-    the whole batch in serving, whose ``data`` axis is 1 wide.  A batch
-    the train step left whole takes the local path with the experts
-    gathered whole over ``model`` (:func:`_whole_experts`)."""
-    from ..distributed.axes import _AXES, train_batch_cut, train_mesh
+    ``x`` is this rank's block over the batch axes when the batch split:
+    the train step and the serve engine each say whether they cut theirs
+    (``axes.batch_cut``).  A batch left whole takes the local path with
+    the experts gathered whole over ``model`` (:func:`_whole_experts`)."""
+    from ..distributed.axes import _AXES, batch_cut
     from ..distributed.sharding import batch_axes_for
     ctx = _AXES.get()
     B, S, d = x.shape
     if ctx is not None:
         mesh = ctx["mesh"]
         n_b = mesh.axis_size(batch_axes_for(mesh))
-        split = train_batch_cut() if train_mesh() is not None \
-            else B % n_b == 0
-        if split:
+        if batch_cut():
             from ..distributed.moe_ep import moe_ep
             n_m = mesh.shape["model"]
             ep = cfg.n_experts % n_m == 0 and n_m > 1
@@ -234,18 +231,17 @@ def moe(params, x: torch.Tensor, cfg) -> torch.Tensor:
                 return moe_ep(params, x.reshape(1, B, d), cfg, mesh
                               ).reshape(B, S, d)
             return moe_ep(params, x, cfg, mesh)
-        params = _whole_experts(params, cfg)
+        params = _whole_experts(params, cfg, mesh)
     return _moe_local(params, x.reshape(B * S, d), cfg).reshape(B, S, d)
 
 
-def _whole_experts(params, cfg):
-    """The experts' weights whole over ``model`` (``gather_model``: its
-    backward keeps this rank's block, every ``model`` rank running the
-    same local path) under the train step on a mesh; else ``params``."""
-    from ..distributed.axes import train_mesh
+def _whole_experts(params, cfg, mesh):
+    """The experts' weights whole over ``model`` on ``mesh``
+    (``gather_model``: under the train step its backward keeps this
+    rank's block, every ``model`` rank running the same local path; in
+    serving it records nothing); ``params`` itself on a 1-wide axis."""
     from ..launch.mesh import gather_model
-    m = train_mesh()
-    if m is None:
+    if mesh.shape["model"] == 1:
         return params
     out = dict(params)
     E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_d_ff or cfg.d_ff
@@ -253,7 +249,7 @@ def _whole_experts(params, cfg):
     for k, shape in whole.items():
         for dim, n in enumerate(shape):
             if out[k].shape[dim] != n:
-                out[k] = gather_model(out[k], m, dim)
+                out[k] = gather_model(out[k], mesh, dim)
     return out
 
 

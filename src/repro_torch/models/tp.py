@@ -21,7 +21,8 @@ autograd forms of ``launch/mesh.py``, and :func:`col_inputs`,
     ``wo``, ``w2``); the vocab-sharded lookup ends in ``from_model``;
   * each layer's FSDP blocks are gathered over the FSDP axes at the start
     of the layer (:func:`fsdp_layer`), their gradients reduce-scattered
-    back.
+    back; the serve step on a wide ``data`` axis gathers them by the same
+    walk, in place, in one all-gather a layer.
 
 Every activation between those points is whole and the same on every
 ``model`` rank, so whatever divides what (half a KV head a rank, a
@@ -32,7 +33,8 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.axes import model_axis, to_block, to_whole, train_mesh
+from ..distributed.axes import (data_axis, model_axis, to_block, to_whole,
+                                train_mesh)
 from ..distributed.sharding import fsdp_axes_of
 from ..launch.mesh import (fsdp_gather, from_model, gather_model,
                            split_model, to_model)
@@ -135,22 +137,55 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
 
 def fsdp_layer(p, specs, cfg):
     """One layer's params with every FSDP block gathered whole over the
-    FSDP axes (``fsdp_gather``: reduce-scatter backward), under the train
-    step on a mesh; elsewhere ``p`` itself.  ``specs`` is the layer's
-    subtree of ``sharding.param_specs`` over the stacked params (each
-    spec's first entry is the stack dim, which ``p`` has dropped): a leaf
-    is a block of the dim its spec cuts over the FSDP axes, whatever that
-    dim is (d_model on the projections, ``rnn_width`` on RG-LRU's
-    ``w_a``/``w_i``), and whole where the spec cuts none."""
+    FSDP axes: under the train step on a mesh by ``fsdp_gather``
+    (reduce-scatter backward); in a serve step whose batch axes are wide
+    by one in-place all-gather for all of the layer's blocks of a dtype
+    (:func:`_gather_blocks`: nothing to differentiate); elsewhere ``p``
+    itself.  ``specs`` is the layer's subtree of ``sharding.param_specs``
+    over the stacked params (each spec's first entry is the stack dim,
+    which ``p`` has dropped): a leaf is a block of the dim its spec cuts
+    over the FSDP axes, whatever that dim is (d_model on the projections,
+    ``rnn_width`` on RG-LRU's ``w_a``/``w_i``), and whole where the spec
+    cuts none."""
     m = train_mesh()
+    serve = m is None
+    if serve:
+        d = data_axis()
+        m = None if d is None else d[0]
     axes = None if m is None else fsdp_axes_of(cfg, m)
-    if m is None or not m.wide(axes):
+    if m is None or specs is None or not m.wide(axes):
         return p
 
-    def walk(leaf, spec):
+    def walk(leaf, spec, fn):
         if isinstance(leaf, dict):
-            return {k: walk(v, spec[k]) for k, v in leaf.items()}
+            return {k: walk(v, spec[k], fn) for k, v in leaf.items()}
         dims = [i for i, ax in enumerate(spec[1:]) if ax == axes]
-        return fsdp_gather(leaf, m, dims[0], axes) if dims else leaf
+        return fn(leaf, dims[0]) if dims else leaf
 
-    return walk(p, specs)
+    if not serve:
+        return walk(p, specs, lambda x, dim: fsdp_gather(x, m, dim, axes))
+    blocks = []
+    walk(p, specs, lambda x, dim: blocks.append((x, dim)))
+    whole = iter(_gather_blocks(blocks, m, axes))
+    return walk(p, specs, lambda x, dim: next(whole))
+
+
+def _gather_blocks(blocks, mesh, axes):
+    """Each ``(block, dim)`` of ``blocks`` whole along its ``dim`` over
+    ``axes``, with one all-gather per dtype among them: the blocks are
+    flattened with their cut dim first, concatenated, gathered, and each
+    rank's part put back in axis order."""
+    n = mesh.axis_size(axes)
+    out = [None] * len(blocks)
+    by_dtype = {}
+    for i, (x, _) in enumerate(blocks):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        moved = [blocks[i][0].movedim(blocks[i][1], 0) for i in idx]
+        g = mesh.all_gather(torch.cat([t.reshape(-1) for t in moved]), 0,
+                            axes).reshape(n, -1)
+        for i, t, part in zip(idx, moved, torch.split(
+                g, [t.numel() for t in moved], 1)):
+            out[i] = part.reshape(n * t.shape[0], *t.shape[1:]).movedim(
+                0, blocks[i][1])
+    return out

@@ -67,12 +67,35 @@ tensor-parallel, every collective explicit and counted on the mesh:
     divide over ``model``), with ``capacity_factor`` raised to E/K on any
     mesh, as in the reference, so that no token is capacity-dropped.
 
+On a ``data`` axis wider than 1 the token step is also data-parallel
+over the slots, with the reference's semantics (its ``constrain(...,
+"batch", ...)`` sites):
+
+  * the weights' FSDP dim is cut over ``data`` as well (``param_specs``),
+    so a rank holds its ``data x model`` block of each such leaf, and each
+    layer gathers its FSDP blocks whole over ``data`` first
+    (``models/tp.py::fsdp_layer``);
+  * the pools are cut over ``model`` only, so every ``data`` rank holds
+    them whole over ``data``, and the page table and allocator stay
+    host-global: positions are reserved on every slot;
+  * each rank embeds and runs the layers on its block of the slots
+    (``distributed/axes.py::constrain``); each layer's new K|V rows, or
+    its new recurrent rows, are gathered whole over ``data`` in one
+    all-gather before the write into the pools, so every ``data`` rank's
+    pools hold every slot; attention reads them for the block's rows;
+  * the final hidden rows are gathered whole over ``data`` before the
+    logits, so every rank's host scheduler picks the same tokens.
+
+When ``data`` does not divide the slots every rank runs them all (the
+reference's fallback rule), and an MoE layer takes the local path with
+the experts gathered whole over ``model``.
+
 A ``1 x 1`` mesh makes no collective; it runs the same ops as
 ``mesh=None`` except that an MoE layer dispatches its tokens in one group
-where the local path takes many.  Refused, each naming the ROADMAP.md
-item that lifts it: the kernel on a ``model`` axis wider than 1 (as in
-the reference), a ``data`` axis wider than 1 (§ A14b-iii), int8 weights and
-``kv_layout="auto"`` on a ``model`` axis wider than 1 (§ A15b).
+where the local path takes many.  Refused: the kernel on any mesh of
+more than one device (as in the reference), and, naming ROADMAP.md §
+A15b, which lifts them, int8 weights and ``kv_layout="auto"`` on a
+``model`` axis wider than 1.
 """
 from __future__ import annotations
 
@@ -92,16 +115,17 @@ from ..core.vbi.kvcache import (PagedServeState, aux_swap_charge,
                                 write_token_kv)
 from ..core.vbi.mtl import MTL
 from ..device import resolve_device
-from ..distributed.axes import logical_axes, model_sum, to_block, to_whole
-from ..distributed.sharding import (ParamBlocks, Sharding, shard_params,
-                                    shard_serve_state)
+from ..distributed.axes import (batch_whole, constrain, data_axis,
+                                logical_axes, model_sum, to_block, to_whole)
+from ..distributed.sharding import (ParamBlocks, Sharding, batch_axes_for,
+                                    shard_params, shard_serve_state)
 from ..kernels.paged_attention import paged_attention
 from ..models.config import LayerSpec, ModelConfig
 from ..models.layers import mlp, moe, rms_norm
 from ..models.model import _layer_params, _logits
 from ..models.rglru import rglru_decode_step
 from ..models.ssm import mamba_decode_step, ssm_dims
-from ..models.tp import row_parallel, vocab_embed
+from ..models.tp import fsdp_layer, row_parallel, vocab_embed
 from .paged import _qkv_ragged
 from .telemetry import StatsView
 
@@ -261,8 +285,14 @@ def _kernel_paged_attention(q, k_pages_l, v_pages_l, page_table, seq_lens,
 # --------------------------------------------------------------------------
 # the token step (shared by decode and chunked prefill)
 # --------------------------------------------------------------------------
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``t``'s slot rows over the batch axes (a
+    view), or ``t`` itself where they are 1 wide or do not divide."""
+    return constrain(t, "batch", *(None,) * (t.dim() - 1))
+
+
 def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
-                attn_impl: str, ring_table: torch.Tensor, params,
+                attn_impl: str, ring_table: torch.Tensor, specs, params,
                 state: PagedServeState, tokens: torch.Tensor,
                 slot_mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, PagedServeState]:
@@ -272,14 +302,20 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
     MoE) → logits.  Updates ``state`` in place; reads nothing back to the
     host.  Under a mesh's ``logical_axes`` the step is tensor-parallel
     (module doc); the shapes of the pools say how a mesh cut them (dim 3:
-    kv heads, dim 4: head_dim)."""
+    kv heads, dim 4: head_dim).  On a wide ``data`` axis the layers run on
+    this rank's slot rows, ``specs`` (the params' ``param_specs``) naming
+    the FSDP blocks each layer gathers, and the pools and the logits stay
+    whole over ``data`` (module doc)."""
+    S = tokens.shape[0]
     state, positions = reserve_positions(state, slot_mask,
                                          has_full=geom.has_full)
-    x = vocab_embed(params["embed"], tokens,
-                    cfg.vocab).float()[:, None, :]              # [S,1,d]
+    rows = _rows if data_axis() is not None else (lambda t: t)
+    pos_b = rows(positions)
+    x = vocab_embed(params["embed"], rows(tokens),
+                    cfg.vocab).float()[:, None, :]              # [B,1,d]
     attn_fn = (_kernel_paged_attention if attn_impl == "kernel"
                else batched_paged_attention)
-    S = tokens.shape[0]
+    B = x.shape[0]
     if geom.n_full or geom.n_ring:
         g = cfg.n_heads // cfg.n_kv
         scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -289,10 +325,11 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
         # ``window`` tokens including it
         ring_pos = positions % geom.window
         ring_lens = torch.clamp(state.seq_lens, max=geom.window)
-    for plan, sp in zip(geom.stage_plans, params["stages"]):
+    for si, (plan, sp) in enumerate(zip(geom.stage_plans, params["stages"])):
         for j in range(plan.count):
             for i, kind in enumerate(plan.kinds):
-                lp = _layer_params(sp[i], j)
+                lp = fsdp_layer(_layer_params(sp[i], j), None if specs is None
+                                else specs["stages"][si][i], cfg)
                 li = plan.entry_indices[i][j]
                 h = rms_norm(x, lp["ln1"], cfg.norm_eps)
                 if kind in ("full", "ring"):
@@ -308,29 +345,34 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
                             ring_table
                         pos, lens, width = ring_pos, ring_lens, \
                             geom.ring_pages
-                    q, k, v = _qkv_ragged(cfg, lp["attn"], h, positions,
+                    q, k, v = _qkv_ragged(cfg, lp["attn"], h, pos_b,
                                           heads_local=kp.shape[3] != cfg.n_kv)
                     qg = (q[:, :, 0].float() * scale).reshape(
-                        S, k.shape[1], g, cfg.head_dim).contiguous()
+                        B, k.shape[1], g, cfg.head_dim).contiguous()
                     kt, vt = k[:, :, 0], v[:, :, 0]
                     if kp.shape[-1] != cfg.head_dim:  # a head_dim block
                         kt = to_block(kt, -1, cfg.head_dim)
                         vt = to_block(vt, -1, cfg.head_dim)
+                    # every data rank's pool takes every slot's row
+                    kt, vt = batch_whole((kt, vt), S)
                     write_token_kv(kp, vp, li, table, pos, slot_mask, kt, vt)
-                    o = attn_fn(qg, kp[li], vp[li], table, lens, width)
-                    x = x + row_parallel(o.reshape(S, 1, -1).to(x.dtype),
+                    o = attn_fn(qg, kp[li], vp[li], rows(table), rows(lens),
+                                width)
+                    x = x + row_parallel(o.reshape(B, 1, -1).to(x.dtype),
                                          lp["attn"]["wo"], n_q)
                 elif kind == "rglru":
                     o, hh, cv = rglru_decode_step(
-                        lp["rglru"], h, state.rg_h[li], state.rg_conv[li],
-                        cfg)
+                        lp["rglru"], h, rows(state.rg_h[li]),
+                        rows(state.rg_conv[li]), cfg)
+                    hh, cv = batch_whole((hh, cv), S)
                     _update_rows(state.rg_h[li], hh, slot_mask)
                     _update_rows(state.rg_conv[li], cv, slot_mask)
                     x = x + o
                 else:                                        # mamba
                     o, st, cv = mamba_decode_step(
-                        lp["mamba"], h, state.ssm_state[li],
-                        state.ssm_conv[li], cfg)
+                        lp["mamba"], h, rows(state.ssm_state[li]),
+                        rows(state.ssm_conv[li]), cfg)
+                    st, cv = batch_whole((st, cv), S)
                     _update_rows(state.ssm_state[li], st, slot_mask)
                     _update_rows(state.ssm_conv[li], cv, slot_mask)
                     x = x + o
@@ -338,6 +380,7 @@ def _token_step(cfg: ModelConfig, geom: StackGeom, max_pages: int,
                     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
                     x = x + (moe(lp["moe"], h2, cfg) if plan.specs[i].moe
                              else mlp(lp["mlp"], h2, cfg.act, cfg.d_ff))
+    x, = batch_whole((x,), S)
     return to_whole(_logits(cfg, params, x), -1, cfg.vocab), state
 
 
@@ -351,20 +394,19 @@ def _update_rows(dst: torch.Tensor, new: torch.Tensor,
 
 def _check_mesh(params, mesh, dev: torch.device, attn_impl: str,
                 kv_layout: str) -> str:
-    """The mesh refusals, each naming the ROADMAP.md item that lifts it;
-    returns the pool layout (``auto`` resolves to ``shard`` on a 1-wide
-    ``model`` axis, where both layouts are the same)."""
+    """The mesh refusals: the kernel on a mesh of more than one device
+    (the reference's own), a mesh whose processes hold other devices than
+    the engine's, and, each naming ROADMAP.md § A15b, which lifts it,
+    ``kv_layout="auto"`` and int8 weights on a ``model`` axis wider than
+    1.  Returns the pool layout (``auto`` resolves to ``shard`` on a
+    1-wide ``model`` axis, where both layouts are the same)."""
     n_model = mesh.shape["model"]
-    if n_model > 1 and attn_impl == "kernel":
+    if mesh.size > 1 and attn_impl == "kernel":
         raise ValueError(
             "attn_impl='kernel' is not sharding-aware: the paged-attention "
-            "kernel assumes a single-device page pool. Use "
-            "attn_impl='gather' on a mesh whose 'model' axis is wider "
-            "than 1 (or a 1x1 mesh)")
-    if mesh.shape["data"] > 1:
-        raise NotImplementedError(
-            f"a 'data' axis of {mesh.shape['data']} in serving is not "
-            f"ported: the serve data axis comes with ROADMAP.md § A14b-iii")
+            "kernel assumes a single-device page pool and slot batch. Use "
+            "attn_impl='gather' on a mesh of more than one device (or a "
+            "1x1 mesh)")
     if kv_layout == "auto":
         if n_model > 1:
             raise NotImplementedError(
@@ -373,16 +415,15 @@ def _check_mesh(params, mesh, dev: torch.device, attn_impl: str,
                 "not ported (ROADMAP.md § A15b): pass kv_layout='shard' or "
                 "'replicate'")
         kv_layout = "shard"
-    if n_model > 1:
-        if mesh.device_type != dev.type:
-            raise ValueError(f"the mesh's processes hold {mesh.device_type} "
-                             f"devices, the engine runs on {dev}")
-        if _has_q8(params):
-            raise NotImplementedError(
-                "int8 (q8) weights on a 'model' axis wider than 1: the "
-                "activation's per-row int8 scale spans the whole "
-                "contraction, which a row block cannot see "
-                "(ROADMAP.md § A15b)")
+    if mesh.size > 1 and mesh.device_type != dev.type:
+        raise ValueError(f"the mesh's processes hold {mesh.device_type} "
+                         f"devices, the engine runs on {dev}")
+    if n_model > 1 and _has_q8(params):
+        raise NotImplementedError(
+            "int8 (q8) weights on a 'model' axis wider than 1: the "
+            "activation's per-row int8 scale spans the whole "
+            "contraction, which a row block cannot see "
+            "(ROADMAP.md § A15b)")
     return kv_layout
 
 
@@ -408,8 +449,8 @@ class PagedEngine:
     policy lives in ``serve/scheduler.py``.  ``params`` must already live
     on ``device``; ``host_swap_pages > 0`` gives the allocator a host swap
     tier of that many pages.  ``mesh`` (a ``launch/mesh.py::Mesh``) and
-    ``kv_layout`` serve on a device mesh (module doc): on a ``model`` axis
-    wider than 1, ``params`` is either this rank's blocks
+    ``kv_layout`` serve on a device mesh (module doc): on a mesh of more
+    than one device, ``params`` is either this rank's blocks
     (``distributed/sharding.py::shard_params`` on this mesh, as the
     launcher gives it) or the whole tree on the host or on ``device``, of
     which only this rank's blocks are copied to ``device``.
@@ -431,7 +472,7 @@ class PagedEngine:
             raise ValueError(f"kv_layout must be 'auto', 'shard' or "
                              f"'replicate', got {kv_layout!r}")
         dev = resolve_device(device)
-        n_model = 1 if mesh is None else mesh.shape["model"]
+        n_dev = 1 if mesh is None else mesh.size
         if mesh is not None:
             kv_layout = _check_mesh(params, mesh, dev, attn_impl, kv_layout)
             if cfg.n_experts > 0:
@@ -442,13 +483,13 @@ class PagedEngine:
                 # as it was
                 cfg = dataclasses.replace(cfg, capacity_factor=max(
                     cfg.capacity_factor, cfg.n_experts / cfg.top_k))
-        if dev.type == "cuda" and attn_impl == "gather" and n_model == 1:
+        if dev.type == "cuda" and attn_impl == "gather" and n_dev == 1:
             raise ValueError(
                 "attn_impl='gather' is the plain twin of the paged-attention "
                 "kernel; on a CUDA engine attention runs through the kernel "
-                "(attn_impl='kernel'), except on a mesh whose 'model' axis "
-                "is wider than 1, where the kernel is refused")
-        if n_model > 1:
+                "(attn_impl='kernel'), except on a mesh of more than one "
+                "device, where the kernel is refused")
+        if n_dev > 1:
             if not isinstance(params, ParamBlocks):
                 params = shard_params(cfg, params, mesh, dev)
             elif params.mesh is not mesh:
@@ -506,13 +547,17 @@ class PagedEngine:
         self.placement = ((f"{dev.type}:{dev.index or 0}",) if mesh is None
                           else tuple(f"{dev.type}:{r}"
                                      for r in range(mesh.size)))
-        self._axes = (nullcontext if mesh is None
-                      else partial(logical_axes, mesh, cfg.n_experts))
+        # the step cuts its slot rows over the batch axes where they
+        # divide them (the MoE's route reads which)
+        self._axes = (nullcontext if mesh is None else partial(
+            logical_axes, mesh, cfg.n_experts,
+            batch_cut=max_seqs % mesh.axis_size(batch_axes_for(mesh)) == 0))
         # the engine satisfies the allocator's pool protocol (.state + geom)
         self.alloc = VBIAllocator(self, host_swap_pages=host_swap_pages,
                                   mtl=mtl)
         self._step = partial(_token_step, cfg, geom, self.max_pages,
-                             attn_impl, self.ring_table)
+                             attn_impl, self.ring_table,
+                             getattr(params, "specs", None))
 
     def attach_metrics(self, metrics) -> None:
         """Move the engine's dispatch counters onto a shared

@@ -118,7 +118,7 @@ def _refusals(world, mesh, inputs):
     data_mesh = make_host_mesh(data=world, model=1)
     catch("data", lambda: PagedEngine(
         cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
-        attn_impl="gather", mesh=data_mesh, kv_layout="shard"))
+        attn_impl="kernel", mesh=data_mesh, kv_layout="shard"))
     return out
 
 

@@ -1290,6 +1290,41 @@ def test_mesh_1x2_nccl_equals_unmeshed(dev, tmp_path):
     assert res[0]["mixtral-8x7b"]["all_to_all"] > 0
 
 
+def test_mesh_2x1_nccl_equals_unmeshed(dev, tmp_path):
+    """Two ranks, one card each, on an nccl group: the qwen3 and mixtral
+    smoke serves on a 2x1 ``data x model`` mesh (each rank its block of 4
+    slots, the weights FSDP-cut over ``data``, the pools whole) give the
+    unmeshed tokens on both ranks, by all-gathers over ``data`` alone."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("a 2x1 mesh over nccl needs two cards (one per data "
+                    "rank); one H100 cannot run it")
+    import multiprocessing as mp
+
+    import _torch_mesh_data_worker as W
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.run_nccl,
+                         args=(r, 2, str(tmp_path / "rdzv"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0], \
+        [(tmp_path / f"rank{r}.err").read_text() for r in range(2)
+         if (tmp_path / f"rank{r}.err").exists()]
+    res = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    for arch in ("qwen3-0.6b", "mixtral-8x7b"):
+        assert res[0][arch]["mesh"] == res[0][arch]["plain"] \
+            == res[1][arch]["mesh"], arch
+        calls = {k: c["calls"] for k, c in res[0][arch]["collectives"].items()
+                 if c["calls"]}
+        assert list(calls) == ["all_gather"], calls
+
+
 # -- the legacy per-sequence path ----------------------------------------------
 def test_paged_decode_attention_kernel_matches_plain(dev):
     """``paged_decode_attention`` on the card (the kernel) against the CPU

@@ -27,10 +27,11 @@ tests.
   * preemption and host swap on the 1x4 sharded pool equal the roomy run;
     a block image through the sharded pool is the unmeshed pool's, bytes
     and CRC; blocks carry the mesh's placement and ``VBProps.SHARDED``;
-  * the refusals (the kernel on a wide ``model`` axis, ``data`` > 1,
-    ``kv_layout='auto'`` on a wide ``model`` axis) and the launcher
-    (``--mesh-shape 1x2 --kv-layout shard``, with and without
-    ``--disagg``) in 2 ranks;
+  * the refusals (the kernel on a wide ``model`` axis and on a
+    ``data``-only mesh, ``kv_layout='auto'`` on a wide ``model`` axis)
+    and the launcher (``--mesh-shape 1x2 --kv-layout shard``, with and
+    without ``--disagg``) in 2 ranks; a ``data`` axis wider than 1 serves
+    (``test_torch_mesh_serve_data.py``);
   * ``moe_ep`` (``distributed/moe_ep.py``) against the port's local MoE
     and the reference's ``_moe_local``: at one token per sequence on 1x2
     and 1x4 (expert-parallel, two all-to-alls a call), the TP fallback
@@ -339,7 +340,7 @@ def test_mesh_placement_is_a_block_property(spawned, world):
 
 @pytest.mark.parametrize("case,exc,item", [
     ("kernel", "ValueError", "kernel"),
-    ("data", "NotImplementedError", "A14b-iii"),
+    ("data", "ValueError", "kernel"),
     ("auto", "NotImplementedError", "A15b")])
 @pytest.mark.parametrize("world", WORLDS)
 def test_mesh_refusals(spawned, world, case, exc, item):
