@@ -166,7 +166,23 @@ Phases (any failure exits non-zero and prints no result line):
               counts equal (the ``data``-axis code launches nothing at
               width 1); the launcher asked for ``--mesh-shape 2x1`` in
               one process (and with ``--attn-impl kernel``) exits 2
-              naming what it needs.  It runs after 4k, before 4i;
+              naming what it needs; an engine built with ``kv_layout
+              auto`` on a 1x1 mesh is ``shard`` with no collective.  It
+              runs after 4k, before 4l;
+ 4l. dryrun — the dry run on the meta device (a 30 s budget, reported; a
+              hang past 120 s fails): qwen3-0.6b's
+              train_4k cell on the 16x16 and 2x16x16 production meshes
+              (two ``python -m repro_torch.launch.dryrun`` processes on
+              the host): the roofline terms and bottleneck on the H100's
+              constants, collective calls and bytes by kind, bytes per
+              device, ``useful_flops_ratio``; a decode cell's A15b-iii
+              record; ``kv_layout="auto"``'s choice and both layouts'
+              collective bytes for qwen3-0.6b and recurrentgemma-9b at
+              full width on counting 1x2 and 1x4 meshes; the step cost
+              walker over a 4g-style qwen3-0.6b train step (8 x 128) on
+              the card against the same step on meta: FLOPs, bytes, ops
+              and collectives equal, no launch counter moved.  It runs
+              after 4h, before 4i;
  4i. legacy — phase 4's requests through the launcher's per-sequence path
               (``--legacy``: ``serve/paged.py::PagedServer``, attention
               through ``paged_decode_attention`` on the kernel): tokens
@@ -856,9 +872,30 @@ def phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms):
           f"1x1 mesh engine, {counts['plain']} on the unmeshed engine "
           f"(mesh / plain {counts['mesh'] / counts['plain']:.4f})")
     _mesh_refusals()
-    print(f"[mesh] the token-step profiles and the refusals took "
-          f"{time.perf_counter() - t0:.1f} s")
+    _auto_on_one_device(engine)
+    print(f"[mesh] the token-step profiles, the refusals and the auto "
+          f"construction took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def _auto_on_one_device(engine):
+    """``kv_layout="auto"`` on a 1x1 mesh (the kernel engine on the
+    launcher's weights): it resolves to ``shard`` without a trace, and the
+    mesh makes no collective."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.engine import PagedEngine
+    mesh = make_host_mesh(1, 1, device="cuda")
+    auto = PagedEngine(engine.cfg, engine.params, page_size=engine.page_size,
+                       max_seqs=engine.max_seqs, n_pages=engine.n_pages,
+                       attn_impl="kernel", device=engine.device, mesh=mesh,
+                       kv_layout="auto")
+    if (auto.kv_layout != "shard" or auto.layout_report is not None
+            or any(c["calls"] or c["bytes"]
+                   for c in mesh.collectives.values())):
+        _fail(f"[mesh] kv_layout auto on a 1x1 mesh: {auto.kv_layout}, "
+              f"report {auto.layout_report}, {mesh.collectives}")
+    print(f"[mesh] kv_layout auto on a 1x1 mesh: {auto.kv_layout}, no "
+          f"trace, collectives {mesh.collectives}")
 
 
 def _step_kernels(torch, eng):
@@ -907,6 +944,195 @@ def _mesh_refusals():
                   f"exited {code} ({msg[-1:]}), not 2 naming {want!r}")
         print(f"[mesh] launcher {' '.join(argv[-2:] + extra)} in one "
               f"process: exit 2, {msg[-1]}")
+
+
+# -- phase 4l: the dry run on the meta device -------------------------------
+#: phase 4l's time budget (the whole script's limit is 1,200 s), which
+#: its last line reports against; its traces are host-bound and the
+#: host's speed moves 30-40% between calls, so only a hang (past
+#: ``DRYRUN_HANG_S``) fails the phase
+DRYRUN_LIMIT_S = 30.0
+DRYRUN_HANG_S = 120.0
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
+#: phase 4's pool at full width: 4 slots, pages of 8, 129 pages, 32-page
+#: rows, as ``kv_layout="auto"`` would trace it
+AUTO_POOL = dict(n_pages=129, page_size=8, max_seqs=4, max_pages=32)
+
+
+def _dryrun_children():
+    """``python -m repro_torch.launch.dryrun`` of qwen3-0.6b's train_4k
+    cell on each production mesh, one process a mesh, started at once
+    (each traces on the host's CPU only)."""
+    import os
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return {mesh: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-0.6b", "--shape", "train_4k", "--mesh", mesh, "--out",
+         str(DRYRUN_OUT)], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for mesh in ("single", "multi")}
+
+
+def _dryrun_cells(children, deadline):
+    """Wait for the children and read their artifacts: {mesh: record}."""
+    recs = {}
+    for mesh, proc in children.items():
+        try:
+            text, _ = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            _fail(f"[dryrun] the {mesh} cell's trace outlasted "
+                  f"{DRYRUN_HANG_S} s")
+        path = DRYRUN_OUT / f"qwen3-0.6b_train_4k_{mesh}.json"
+        if proc.returncode != 0 or not path.exists():
+            _fail(f"[dryrun] the {mesh} cell exited {proc.returncode}: "
+                  f"{text.strip()[-2000:]}")
+        recs[mesh] = json.loads(path.read_text())
+        if not recs[mesh].get("ok") or recs[mesh].get("skipped"):
+            _fail(f"[dryrun] the {mesh} cell: {recs[mesh]}")
+    return recs
+
+
+def _walker_card_vs_meta(torch, dev, card):
+    """One 4g-style qwen3-0.6b train step (the published config, the
+    unmeshed ``make_train_step``, a batch of 8 x 128) walked on the card
+    and the same step walked on meta: FLOPs, bytes, ops and collectives
+    equal, no kernel launch counter moved."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.distributed import hlo_cost
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (abstract_train_state,
+                                        init_train_state, make_train_step)
+    cfg, opt = get_config("qwen3-0.6b"), AdamWConfig()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in SyntheticLMData(cfg, 8, 128, 0).batch_at(0).items()}
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    before = hlo_cost._launch_counts()
+    t0 = time.perf_counter()
+    on_card = hlo_cost.trace_step(make_train_step(cfg, opt), state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    loss = float(on_card.result[1]["loss"])
+    del state, batch, on_card.result
+    _free(torch)
+    t0 = time.perf_counter()
+    on_meta = hlo_cost.trace_step(make_train_step(cfg, opt),
+                                  abstract_train_state(cfg, opt),
+                                  batch_specs(cfg, 8, 128))
+    meta_s = time.perf_counter() - t0
+    after = hlo_cost._launch_counts()
+    a, b = on_card.report(), on_meta.report()
+    keys = ("flops", "bytes", "bytes_min", "collectives",
+            "collective_counts")
+    if any(a[k] != b[k] for k in keys) or on_card.n_ops != on_meta.n_ops:
+        _fail(f"[dryrun] the walker's card and meta counts of a train step "
+              f"differ: card {a}, {on_card.n_ops} ops; meta {b}, "
+              f"{on_meta.n_ops} ops")
+    if after != before or not math.isfinite(loss):
+        _fail(f"[dryrun] launch counters {before} -> {after}, loss {loss}")
+    print(f"[dryrun] {card}: qwen3-0.6b train step of 8 x 128 walked on "
+          f"the card ({card_s:.2f} s, loss {loss:.4f}) and on meta "
+          f"({meta_s:.2f} s): equal, {on_card.n_ops} ops, "
+          f"{a['flops']:.6e} FLOPs, {a['bytes']:.6e} bytes, bytes_min "
+          f"{a['bytes_min']:.6e}, collectives {a['collectives']['total']}; "
+          f"peak live bytes card {on_card.peak_bytes} meta "
+          f"{on_meta.peak_bytes}; launch counters unchanged {after}")
+    return a
+
+
+def _auto_layouts():
+    """``pick_layout`` (``kv_layout="auto"``'s trace) for qwen3-0.6b and
+    recurrentgemma-9b at full width on counting 1x2 and 1x4 meshes, phase
+    4's pool: {(arch, model width): report}."""
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.models.model import params_shape
+    from repro_torch.serve.engine import (build_stack_geom, pick_layout,
+                                          pool_geometry)
+    out = {}
+    for arch in ("qwen3-0.6b", "recurrentgemma-9b"):
+        cfg = serve.serve_config(arch, smoke=False)
+        geom = build_stack_geom(cfg, AUTO_POOL["page_size"])
+        pool = pool_geometry(cfg, geom, AUTO_POOL["n_pages"],
+                             AUTO_POOL["page_size"], AUTO_POOL["max_seqs"],
+                             AUTO_POOL["max_pages"])
+        for m in (2, 4):
+            axes = {"data": 1, "model": m}
+            blocks = shard_params(cfg, params_shape(cfg),
+                                  CountingMesh(axes), "meta")
+            t0 = time.perf_counter()
+            chosen, rep = pick_layout(cfg, geom, axes, blocks, pool,
+                                      AUTO_POOL["max_pages"])
+            cand = {k: v["collective_bytes"]
+                    for k, v in rep["candidates"].items()}
+            if chosen != min(("shard", "replicate"),
+                             key=lambda k: (cand[k], k != "shard")):
+                _fail(f"[dryrun] auto layout {chosen} is not the argmin of "
+                      f"{cand}")
+            out[(arch, m)] = rep
+            print(f"[dryrun] kv_layout auto, {arch} at full width on a "
+                  f"counting 1x{m} mesh: {chosen} (collective bytes: shard "
+                  f"{cand['shard']:.0f}, replicate {cand['replicate']:.0f}; "
+                  f"comms share shard "
+                  f"{rep['candidates']['shard']['predicted_comms_share']:.3e}"
+                  f", replicate "
+                  f"{rep['candidates']['replicate']['predicted_comms_share']:.3e}"
+                  f"), {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def phase_dryrun(torch, dev, card):
+    """Phase 4l: the dry run on the host, beside one step on the card.
+    qwen3-0.6b's train_4k cell on both production meshes (two
+    ``launch.dryrun`` processes, started first), a serve cell's A15b-iii
+    record, ``kv_layout="auto"``'s choice at full width on counting 1x2
+    and 1x4 meshes, and the walker's card and meta counts of a 4g-style
+    train step, reported against ``DRYRUN_LIMIT_S``."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    children = _dryrun_children()
+    try:
+        rec = dryrun.lower_cell("qwen3-0.6b", "decode_32k", False)
+        if rec["ok"] or "A15b-iii" not in rec.get("error", ""):
+            _fail(f"[dryrun] a serve cell did not record A15b-iii: {rec}")
+        print(f"[dryrun] qwen3-0.6b decode_32k single: ok false, "
+              f"{rec['error']}")
+        _auto_layouts()
+        _walker_card_vs_meta(torch, dev, card)
+        recs = _dryrun_cells(children, t0 + DRYRUN_HANG_S)
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for mesh, r in recs.items():
+        rl, mem = r["roofline"], r["memory"]
+        calls = {k: int(v) for k, v in r["collective_counts"].items() if v}
+        byts = {k: int(v) for k, v in r["collectives"].items()
+                if v and k != "total"}
+        print(f"[dryrun] qwen3-0.6b train_4k {mesh} ({r['n_devices']} "
+              f"devices, traced in {r['lower_s']} s, {r['n_ops']} ops): "
+              f"compute {rl['compute_s']:.6f} s, memory "
+              f"{rl['memory_s']:.6f} s (max {rl['memory_s_max']:.6f}), "
+              f"collective {rl['collective_s']:.6f} s, bottleneck "
+              f"{rl['bottleneck']} (H100 constants: 989e12 FLOP/s, "
+              f"3.35e12 B/s, 50e9 B/s); collective calls {calls}, bytes "
+              f"{byts}; bytes per device {r['bytes_per_device_live']} "
+              f"(argument {mem['argument_size_in_bytes']}, temp "
+              f"{mem['temp_size_in_bytes']}); useful_flops_ratio "
+              f"{r['useful_flops_ratio']:.6f}")
+    took = time.perf_counter() - t0
+    print(f"[dryrun] phase 4l took {took:.1f} s: "
+          f"{'within' if took <= DRYRUN_LIMIT_S else 'OVER'} its "
+          f"{DRYRUN_LIMIT_S:.0f} s budget")
+    return recs
 
 
 # -- phase 4i: the legacy per-sequence path ---------------------------------
@@ -4174,6 +4400,11 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = phase_mesh(torch, pa, card, serve_outs, serve_horizon_ms)
     print(f"[mesh] phase took {time.perf_counter() - t0:.1f} s")
+
+    _free(torch)
+    t0 = time.perf_counter()
+    phase_dryrun(torch, dev, card)
+    print(f"[dryrun] phase took {time.perf_counter() - t0:.1f} s")
 
     _free(torch)
     t0 = time.perf_counter()

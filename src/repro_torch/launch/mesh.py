@@ -16,6 +16,11 @@ devices (``torchrun --nproc-per-node N``, or :func:`init_distributed`
 from the environment ``torchrun`` sets); the backend follows the device,
 gloo for ``cpu`` and nccl for ``cuda``.
 
+:class:`CountingMesh` is one rank of any mesh with no process group: its
+collectives count as a real rank's and move nothing (the dry run's mesh,
+``distributed/hlo_cost.py``); ``make_production_mesh(counting=True)``
+builds the production meshes so, with no 256 or 512 ranks.
+
 Training differentiates through collectives, so beside the in-place
 helpers of :class:`Mesh` (the serve path's) this module holds their
 autograd forms (:func:`to_model`, :func:`from_model`,
@@ -246,6 +251,103 @@ class Mesh:
         t = torch.full((1,), int(bool(flag)), dtype=torch.int32,
                        device=self.device_type)
         return bool(self.all_reduce(t, self.all_axes(), op="max").item())
+
+
+class CountingMesh(Mesh):
+    """A mesh that counts collectives and moves nothing: the dry run's
+    mesh (``distributed/hlo_cost.py``), where the reference forces 512
+    fake host devices and lowers under ``jax.make_mesh``.
+
+    It is one rank of ``axes`` (rank 0 by default) with no process group.
+    Each collective returns what :class:`Mesh`'s returns, of the same
+    shape, dtype and device (an all-reduce or broadcast ``x`` itself, the
+    others a fresh uninitialised tensor), after the same local copies the
+    real one makes (``contiguous``, the chunks of a reduce-scatter); it
+    counts ``collectives[kind]`` exactly as a real rank does, and appends
+    one record per call to ``calls``: ``{"kind", "operand_bytes",
+    "result_bytes"}``, what ``hlo_analysis.collective_bytes`` reads.
+    :meth:`agree` counts its all-reduce and returns this rank's flag.
+    ``device_type`` is ``meta`` unless the traced tensors live elsewhere
+    (the values a collective returns there are garbage)."""
+
+    def __init__(self, axes: Dict[str, int], rank: int = 0,
+                 device_type: str = "meta"):
+        super().__init__(axes=axes, rank=rank, device_type=device_type)
+
+    def __repr__(self) -> str:
+        return f"CountingMesh({self.shape}, rank {self.rank})"
+
+    def reset_collectives(self) -> None:
+        super().reset_collectives()
+        self.calls = []
+
+    def _record(self, kind: str, x: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+        self._count(kind, x)
+        self.calls.append({
+            "kind": kind,
+            "operand_bytes": x.nelement() * x.element_size(),
+            "result_bytes": out.nelement() * out.element_size()})
+        return out
+
+    def all_reduce(self, x: torch.Tensor, axis: Axis = "model",
+                   op: str = "sum") -> torch.Tensor:
+        if op not in ("sum", "max"):
+            raise ValueError("all_reduce op must be one of ['sum', 'max']")
+        return self._record("all_reduce", x, x) if self.wide(axis) else x
+
+    def all_gather(self, x: torch.Tensor, dim: int, axis: Axis = "model"
+                   ) -> torch.Tensor:
+        wide = self.wide(axis)
+        if not wide:
+            return x
+        x = x.contiguous()
+        shape = list(x.shape)
+        shape[dim] *= self.axis_size(wide)
+        return self._record("all_gather", x, x.new_empty(shape))
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: Axis = "model") -> torch.Tensor:
+        wide = self.wide(axis)
+        if not wide:
+            return x
+        n = self.axis_size(wide)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split into {n} blocks")
+        chunks = [c.contiguous() for c in x.chunk(n, dim)]
+        return self._record("reduce_scatter", x,
+                            torch.empty_like(chunks[0]))
+
+    def all_to_all(self, x: torch.Tensor, axis: str = "model"
+                   ) -> torch.Tensor:
+        wide = self.wide(axis)
+        if not wide:
+            return x
+        n = self.axis_size(wide)
+        if x.shape[0] % n:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
+                             f"into {n} chunks")
+        x = x.contiguous()
+        return self._record("all_to_all", x, torch.empty_like(x))
+
+    def broadcast(self, x: torch.Tensor, src: int = 0, axis: Axis = "model"
+                  ) -> torch.Tensor:
+        return self._record("broadcast", x, x) if self.wide(axis) else x
+
+    def ppermute(self, x: torch.Tensor, axis: str = "pipe",
+                 shift: int = 1) -> torch.Tensor:
+        if not self.wide(axis):
+            return x
+        x = x.contiguous()
+        return self._record("ppermute", x, torch.empty_like(x))
+
+    def agree(self, flag: bool) -> bool:
+        if self.all_axes():
+            self.all_reduce(torch.zeros((1,), dtype=torch.int32,
+                                        device=self.device_type),
+                            self.all_axes(), op="max")
+        return bool(flag)
 
 
 def _coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
@@ -514,12 +616,20 @@ def init_distributed(device: str) -> torch.device:
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device: Optional[str] = None) -> Mesh:
+                         device: Optional[str] = None,
+                         counting: bool = False) -> Mesh:
     """The reference's training mesh: ``data 16 x model 16`` (256 ranks;
     ``multi_pod``: ``pod 2 x data 16 x model 16``, 512) over the
     initialised group, which must hold exactly that many ranks; any other
-    world size raises, naming the count."""
+    world size raises, naming the count.
+
+    ``counting``: rank 0 of that mesh as a :class:`CountingMesh` on
+    ``device`` (``meta`` by default), with no process group (the dry
+    run's mesh; the reference's counterpart forces
+    ``--xla_force_host_platform_device_count=512``)."""
     shape = PRODUCTION_AXES[bool(multi_pod)]
+    if counting:
+        return CountingMesh(dict(shape), device_type=device or "meta")
     return _mesh_on_group(dict(shape), device,
                           f"the production mesh {_label(shape)} "
                           f"({', '.join(shape)})")

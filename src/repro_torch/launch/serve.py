@@ -89,8 +89,10 @@ scheduler are host-global, the same on every rank.  On any mesh of more
 than one device attention takes the plain batched path (``--attn-impl``
 defaults to ``gather`` there; the kernel is refused, as in the
 reference); MoE layers dispatch expert-parallel over ``model``
-(``distributed/moe_ep.py``); ``--kv-layout auto`` is refused on a
-``model`` axis wider than 1 (ROADMAP.md § A15b).  Both ``--disagg``
+(``distributed/moe_ep.py``); ``--kv-layout auto`` (the default) keeps
+``shard`` on a 1-wide ``model`` axis and on a wider one traces a token
+step under both layouts on meta and keeps the one that moves fewer
+collective bytes (``serve/engine.py::pick_layout``).  Both ``--disagg``
 engines get the mesh and share one cut tree of weights.  On a mesh of
 more than one device the weights are drawn on the host and each rank
 copies only its blocks to its device (``shard_params``), so the device
@@ -196,8 +198,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-layout", default="auto",
                     choices=("auto", "shard", "replicate"),
                     help="pool layout on the mesh: 'shard' over 'model' or "
-                         "'replicate' on every rank ('auto' is 'shard' on a "
-                         "1-wide 'model' axis and refused on a wider one)")
+                         "'replicate' on every rank ('auto': the layout a "
+                         "traced token step counts fewer collective bytes "
+                         "for; 'shard' on a 1-wide 'model' axis)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable cross-request KV page sharing")
     ap.add_argument("--overlap", action="store_true",
@@ -415,6 +418,8 @@ def serve(cfg, params, *, requests: int = 6, max_new: int = 16,
     if mesh is not None:
         echo(f"[serve] mesh {dict(mesh.shape)}: kv_layout="
              f"{engine.kv_layout}, placement={engine.placement}")
+        if engine.layout_report is not None:
+            echo(f"[serve] layout probe: {engine.layout_report}")
         mesh.reset_collectives()
     cache = PrefixCache(page_size=page_size) if prefix_cache else None
     if cache is not None and not engine.supports_prefix_sharing:

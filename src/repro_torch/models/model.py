@@ -43,6 +43,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from ..device import resolve_device
+from ..distributed import hlo_cost
 from ..distributed.axes import in_scope, train_mesh, train_scope
 from ..distributed.sharding import param_specs
 from ..tree import leaves
@@ -216,6 +217,13 @@ def params_shape(cfg: ModelConfig) -> Dict:
     return _build_params(cfg, _MetaInit())
 
 
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The reference's ``abstract_params`` (``jax.eval_shape`` of
+    ``init_params``: the dry run's params): :func:`params_shape`, the
+    same paths, shapes and dtypes as meta tensors."""
+    return params_shape(cfg)
+
+
 def params_from_numpy(tree, device: Union[str, torch.device] = "cuda"):
     """The weight bridge: a params tree whose leaves are numpy arrays (the
     reference's ``init_params`` output converted leaf by leaf) → the same
@@ -269,8 +277,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda") -> List:
     """Per stage, per period entry: the layer kind's cache leaves as
     ``[count, batch, ...]`` zeros (``k``/``v`` of ``[count, batch, n_kv,
-    S_cache, head_dim]`` for attention)."""
-    dev = resolve_device(device)
+    S_cache, head_dim]`` for attention); on ``device="meta"`` shapes and
+    dtypes only (:func:`abstract_cache`)."""
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     dtype = (_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype
              else _cdt(cfg))
     out = []
@@ -281,6 +291,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                  spec, cfg, batch, max_len, dtype).items()}
             for spec in st.period])
     return out
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> List:
+    """The reference's ``abstract_cache`` (``jax.eval_shape`` of
+    ``init_cache``): the cache tree as meta tensors."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 # --------------------------------------------------------------------------
@@ -550,12 +566,16 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
     under ``torch.utils.checkpoint`` (its activations are recomputed in
     the backward, as under the reference's ``jax.checkpoint``).  Under the
     train step on a mesh each train layer gathers its FSDP blocks first
-    (``_train_layer``)."""
+    (``_train_layer``).  Under the dry run's walker each stage is a loop
+    scope of ``count`` trips (``distributed/hlo_cost.py``)."""
     stage_list = stage_list or cfg.stages()
     remat_kw = _remat(cfg, mode, x, stages_params)
     mesh = train_mesh() if mode == "train" else None
     scope, specs = train_scope(), _train_specs(cfg, mesh)
+    walker = hlo_cost.active()          # None unless a dry run traces
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
+        if walker is not None:
+            walker.enter_loop(f"{mode} stages[{si}]", stage.count)
         layers = [_per_layer(sp[i], stage.count)
                   for i in range(len(stage.period))]
         layer_caches = (None if caches is None else
@@ -576,6 +596,8 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                 for name, t in nc.items():
                     if t is not cc[name]:
                         cc[name].copy_(t)
+        if walker is not None:
+            walker.exit_loop()
     return x, caches
 
 

@@ -90,12 +90,18 @@ When ``data`` does not divide the slots every rank runs them all (the
 reference's fallback rule), and an MoE layer takes the local path with
 the experts gathered whole over ``model``.
 
+``kv_layout="auto"`` is ``shard`` on a 1-wide ``model`` axis, where the
+two layouts are the same; on a wider one the engine traces one token
+step under each on meta (:func:`pick_layout`, the step cost walker of
+``distributed/hlo_cost.py`` on a counting mesh of the mesh's shape) and
+keeps ``shard`` unless ``replicate`` counts fewer collective bytes, the
+reference's rule; ``layout_report`` says what it counted.
+
 A ``1 x 1`` mesh makes no collective; it runs the same ops as
 ``mesh=None`` except that an MoE layer dispatches its tokens in one group
 where the local path takes many.  Refused: the kernel on any mesh of
 more than one device (as in the reference), and, naming ROADMAP.md §
-A15b, which lifts them, int8 weights and ``kv_layout="auto"`` on a
-``model`` axis wider than 1.
+A15b-iii, which lifts it, int8 weights on a ``model`` axis wider than 1.
 """
 from __future__ import annotations
 
@@ -115,6 +121,7 @@ from ..core.vbi.kvcache import (PagedServeState, aux_swap_charge,
                                 write_token_kv)
 from ..core.vbi.mtl import MTL
 from ..device import resolve_device
+from ..distributed import hlo_cost
 from ..distributed.axes import (batch_whole, constrain, data_axis,
                                 logical_axes, model_sum, to_block, to_whole)
 from ..distributed.sharding import (ParamBlocks, Sharding, batch_axes_for,
@@ -126,6 +133,7 @@ from ..models.model import _layer_params, _logits
 from ..models.rglru import rglru_decode_step
 from ..models.ssm import mamba_decode_step, ssm_dims
 from ..models.tp import fsdp_layer, row_parallel, vocab_embed
+from ..tree import tree_map
 from .paged import _qkv_ragged
 from .telemetry import StatsView
 
@@ -392,39 +400,101 @@ def _update_rows(dst: torch.Tensor, new: torch.Tensor,
     dst.copy_(torch.where(mask, new.to(dst.dtype), dst))
 
 
-def _check_mesh(params, mesh, dev: torch.device, attn_impl: str,
-                kv_layout: str) -> str:
+def _check_mesh(params, mesh, dev: torch.device, attn_impl: str) -> None:
     """The mesh refusals: the kernel on a mesh of more than one device
     (the reference's own), a mesh whose processes hold other devices than
-    the engine's, and, each naming ROADMAP.md § A15b, which lifts it,
-    ``kv_layout="auto"`` and int8 weights on a ``model`` axis wider than
-    1.  Returns the pool layout (``auto`` resolves to ``shard`` on a
-    1-wide ``model`` axis, where both layouts are the same)."""
-    n_model = mesh.shape["model"]
+    the engine's, and int8 weights on a ``model`` axis wider than 1,
+    naming ROADMAP.md § A15b-iii, which lifts it."""
     if mesh.size > 1 and attn_impl == "kernel":
         raise ValueError(
             "attn_impl='kernel' is not sharding-aware: the paged-attention "
             "kernel assumes a single-device page pool and slot batch. Use "
             "attn_impl='gather' on a mesh of more than one device (or a "
             "1x1 mesh)")
-    if kv_layout == "auto":
-        if n_model > 1:
-            raise NotImplementedError(
-                "kv_layout='auto' picks a layout by reading the compiled "
-                "step's collectives in the reference (hlo_cost), which is "
-                "not ported (ROADMAP.md § A15b): pass kv_layout='shard' or "
-                "'replicate'")
-        kv_layout = "shard"
     if mesh.size > 1 and mesh.device_type != dev.type:
         raise ValueError(f"the mesh's processes hold {mesh.device_type} "
                          f"devices, the engine runs on {dev}")
-    if n_model > 1 and _has_q8(params):
+    if mesh.shape["model"] > 1 and _has_q8(params):
         raise NotImplementedError(
             "int8 (q8) weights on a 'model' axis wider than 1: the "
             "activation's per-row int8 scale spans the whole "
             "contraction, which a row block cannot see "
-            "(ROADMAP.md § A15b)")
-    return kv_layout
+            "(ROADMAP.md § A15b-iii)")
+
+
+def pool_geometry(cfg: ModelConfig, geom: StackGeom, n_pages: int,
+                  page_size: int, max_seqs: int, max_pages: int) -> Dict:
+    """The engine's pools as ``kvcache.init_serve_state``'s arguments."""
+    rnn_w = (cfg.rnn_width or cfg.d_model) if geom.n_rg else 0
+    ssm_H = ssm_P = ssm_conv_ch = 0
+    if geom.n_ssm:
+        d_inner, ssm_H, ssm_P = ssm_dims(cfg)
+        ssm_conv_ch = d_inner + 2 * cfg.ssm_state
+    return dict(
+        n_layers=geom.n_full, n_pages=n_pages, page_size=page_size,
+        n_kv=cfg.n_kv, head_dim=cfg.head_dim, max_seqs=max_seqs,
+        max_pages_per_seq=max_pages, dtype=torch.float32,
+        n_ring_layers=geom.n_ring, ring_pages=geom.ring_pages,
+        n_rg=geom.n_rg, rnn_width=rnn_w, conv_width=cfg.conv_width,
+        n_ssm=geom.n_ssm, ssm_heads=ssm_H, ssm_proj=ssm_P,
+        ssm_state_size=cfg.ssm_state, ssm_conv_ch=ssm_conv_ch)
+
+
+def pick_layout(cfg: ModelConfig, geom: StackGeom, mesh_axes: Dict, params,
+                pool: Dict, max_pages: int) -> Tuple[str, Dict]:
+    """``kv_layout="auto"`` (the reference's ``_pick_layout``): one decode
+    token step of the engine's config traced on meta under ``shard`` and
+    under ``replicate`` (:func:`trace_token_step`), each on a counting
+    mesh of ``mesh_axes`` at rank 0's coordinates, so every rank makes the
+    same choice with no collective; ``shard`` unless ``replicate`` counts
+    fewer collective bytes.  Returns (the layout, ``{"chosen",
+    "candidates": {layout: {"collective_bytes", "predicted_comms_share",
+    "flops"}}}``)."""
+    reports = {}
+    for layout in ("shard", "replicate"):
+        cost, _ = trace_token_step(cfg, geom, mesh_axes, layout, params,
+                                   pool, max_pages)
+        r = cost.report()
+        reports[layout] = {
+            "collective_bytes": r["collectives"]["total"],
+            "predicted_comms_share": hlo_cost.comms_share(r),
+            "flops": r["flops"]}
+    chosen = ("shard" if reports["shard"]["collective_bytes"]
+              <= reports["replicate"]["collective_bytes"] else "replicate")
+    return chosen, {"chosen": chosen, "candidates": reports}
+
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def trace_token_step(cfg: ModelConfig, geom: StackGeom, mesh_axes: Dict,
+                     layout: str, params, pool: Dict, max_pages: int):
+    """One token step of every slot traced on meta by the step cost walker
+    (``distributed/hlo_cost.py``): rank 0 of a
+    ``launch/mesh.py::CountingMesh`` of ``mesh_axes``, its pools cut by
+    ``serve_state_specs`` under ``layout``, on the plain batched attention
+    (the kernel is refused on a mesh of more than one device).
+    ``params`` is a rank's blocks for a mesh of this shape
+    (``ParamBlocks``; only shapes and dtypes are read) and ``pool`` the
+    engine's pool geometry.  Returns (walker cost, counting mesh);
+    nothing of a live mesh or pool is touched."""
+    from ..launch.mesh import CountingMesh
+    mesh = CountingMesh(dict(mesh_axes))
+    blocks = ParamBlocks(tree_map(_meta, dict(params)))
+    blocks.mesh, blocks.specs = mesh, getattr(params, "specs", None)
+    state, _ = shard_serve_state(mesh, layout, "meta", **pool)
+    S = pool["max_seqs"]
+    ring = torch.empty((S, max(geom.ring_pages, 1)), dtype=torch.int32,
+                       device="meta")
+    tokens = torch.empty((S,), dtype=torch.int32, device="meta")
+    mask = torch.empty((S,), dtype=torch.bool, device="meta")
+    batch_cut = S % mesh.axis_size(batch_axes_for(mesh)) == 0
+    with logical_axes(mesh, cfg.n_experts, batch_cut=batch_cut):
+        cost = hlo_cost.trace_step(
+            _token_step, cfg, geom, max_pages, "gather", ring,
+            blocks.specs, blocks, state, tokens, mask, mesh=mesh)
+    return cost, mesh
 
 
 def _has_q8(tree) -> bool:
@@ -456,7 +526,9 @@ class PagedEngine:
     which only this rank's blocks are copied to ``device``.
     ``self.params`` holds the blocks, ``self.shardings`` each pool leaf's
     :class:`Sharding` and ``self.placement`` one device name per mesh
-    device."""
+    device; ``kv_layout="auto"`` (the default) resolves by
+    :func:`pick_layout` on a wide ``model`` axis, whose report
+    ``self.layout_report`` keeps (None otherwise)."""
 
     def __init__(self, cfg: ModelConfig, params, n_pages: int = 256,
                  page_size: int = 16, max_seqs: int = 8,
@@ -474,7 +546,7 @@ class PagedEngine:
         dev = resolve_device(device)
         n_dev = 1 if mesh is None else mesh.size
         if mesh is not None:
-            kv_layout = _check_mesh(params, mesh, dev, attn_impl, kv_layout)
+            _check_mesh(params, mesh, dev, attn_impl)
             if cfg.n_experts > 0:
                 # no token may be capacity-dropped on a mesh where the
                 # unmeshed path keeps it: cap >= T_loc holds iff
@@ -512,19 +584,15 @@ class PagedEngine:
         # (a prefill chunk of C columns runs C of them)
         self.stats = {"decode_steps": 0, "decode_dispatches": 0,
                       "prefill_chunks": 0, "token_steps": 0}
-        rnn_w = (cfg.rnn_width or cfg.d_model) if geom.n_rg else 0
-        ssm_H = ssm_P = ssm_conv_ch = 0
-        if geom.n_ssm:
-            d_inner, ssm_H, ssm_P = ssm_dims(cfg)
-            ssm_conv_ch = d_inner + 2 * cfg.ssm_state
-        pool = dict(
-            n_layers=geom.n_full, n_pages=n_pages, page_size=page_size,
-            n_kv=cfg.n_kv, head_dim=cfg.head_dim, max_seqs=max_seqs,
-            max_pages_per_seq=self.max_pages, dtype=torch.float32,
-            n_ring_layers=geom.n_ring, ring_pages=geom.ring_pages,
-            n_rg=geom.n_rg, rnn_width=rnn_w, conv_width=cfg.conv_width,
-            n_ssm=geom.n_ssm, ssm_heads=ssm_H, ssm_proj=ssm_P,
-            ssm_state_size=cfg.ssm_state, ssm_conv_ch=ssm_conv_ch)
+        pool = pool_geometry(cfg, geom, n_pages, page_size, max_seqs,
+                             self.max_pages)
+        # 'auto' traces the token step under both layouts and keeps the
+        # one that moves fewer collective bytes (_pick_layout); on a
+        # 1-wide 'model' axis the two layouts are the same
+        self.layout_report = None
+        if mesh is not None and kv_layout == "auto":
+            kv_layout = ("shard" if mesh.shape["model"] == 1
+                         else self._pick_layout(mesh, params, pool))
         # on a mesh the pools are cut by serve_state_specs (each rank
         # allocates only its blocks); translation stays replicated
         self.mesh = mesh
@@ -558,6 +626,13 @@ class PagedEngine:
         self._step = partial(_token_step, cfg, geom, self.max_pages,
                              attn_impl, self.ring_table,
                              getattr(params, "specs", None))
+
+    def _pick_layout(self, mesh, params, pool: Dict) -> str:
+        """``kv_layout="auto"`` on a wide ``model`` axis
+        (:func:`pick_layout`); sets ``layout_report``."""
+        chosen, self.layout_report = pick_layout(
+            self.cfg, self.geom, mesh.shape, params, pool, self.max_pages)
+        return chosen
 
     def attach_metrics(self, metrics) -> None:
         """Move the engine's dispatch counters onto a shared

@@ -53,6 +53,14 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0,
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}
 
 
+def abstract_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig
+                         ) -> Dict[str, Any]:
+    """The reference's ``abstract_train_state`` (``jax.eval_shape`` of
+    ``init_train_state``): the state tree as meta tensors."""
+    params = params_shape(cfg)
+    return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+
+
 def _split_microbatches(batch: Dict, accum: int) -> Dict:
     """Each leaf [B, ...] → [accum, B // accum, ...]: microbatch i holds
     rows i·B/accum .. (i+1)·B/accum - 1."""

@@ -51,8 +51,9 @@ def _serve(eng, prompts, max_new, k, telemetry=None):
 
 def _step_logits(eng, prompts):
     """Prefill every prompt into its slot, then one decode step: the
-    step's logits [max_seqs, vocab], the greedy tokens it fed, and slot
-    0's block exported as a sealed image (prompt and fed token)."""
+    step's logits [max_seqs, vocab], the greedy tokens it fed, slot 0's
+    block exported as a sealed image (prompt and fed token), and the
+    collectives of the decode step alone (None without a mesh)."""
     alloc = eng.alloc
     L = max(len(p) for p in prompts)
     toks = torch.zeros((eng.max_seqs, L), dtype=torch.int32)
@@ -66,13 +67,16 @@ def _step_logits(eng, prompts):
     first = eng.prefill_chunk(toks, n)
     mask = torch.zeros((eng.max_seqs,), dtype=torch.bool)
     mask[:len(prompts)] = True
+    if eng.mesh is not None:
+        eng.mesh.reset_collectives()
     logits = eng.decode(first, mask)[:, 0]
+    step = None if eng.mesh is None else _collectives(eng.mesh)
     alloc.commit(blocks[0], len(prompts[0]) + 1)
     img = alloc.export_image(blocks[0], tokens=list(prompts[0])
                              + [int(first[0])])
     for blk in list(alloc.blocks.values()):
         alloc.free(blk)
-    return logits.clone(), first.tolist(), img
+    return logits.clone(), first.tolist(), img, step
 
 
 def _img_record(img):
@@ -112,9 +116,6 @@ def _refusals(world, mesh, inputs):
     catch("kernel", lambda: PagedEngine(
         cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
         attn_impl="kernel", mesh=mesh, kv_layout="shard"))
-    catch("auto", lambda: PagedEngine(
-        cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
-        attn_impl="gather", mesh=mesh, kv_layout="auto"))
     data_mesh = make_host_mesh(data=world, model=1)
     catch("data", lambda: PagedEngine(
         cfg, params, n_pages=9, page_size=8, max_seqs=1, device="cpu",
@@ -191,11 +192,12 @@ def cases(world, inputs):
     from repro_torch.serve.telemetry import Telemetry
 
     mesh = make_host_mesh(data=1, model=world)
-    res = {"tokens": {}, "logits": {}, "shapes": {}, "images": {}}
+    res = {"tokens": {}, "logits": {}, "shapes": {}, "images": {},
+           "auto": {}}
     for arch in ARCHS:
         cfg, params = inputs[arch]["cfg"], inputs[arch]["params"]
         prompts = inputs[arch]["prompts"]
-        plain_logits, plain_first, img0 = _step_logits(
+        plain_logits, plain_first, img0, _ = _step_logits(
             _engine(cfg, params), prompts)
         for layout in LAYOUTS:
             for k in HORIZONS:
@@ -213,11 +215,11 @@ def cases(world, inputs):
                     "placement": eng.placement,
                     "kv_layout": eng.kv_layout}
             eng = _engine(cfg, params, mesh, layout)
-            logits, first, own = _step_logits(eng, prompts)
+            logits, first, own, step = _step_logits(eng, prompts)
             res["logits"][(arch, layout)] = {
                 "err": float((logits - plain_logits).abs().max()),
                 "first": first, "plain_first": plain_first,
-                "logits": logits}
+                "logits": logits, "step": step}
             res["shapes"][(arch, layout)] = {
                 "local": _local_shapes(eng),
                 "whole": _local_shapes(_engine(cfg, params)),
@@ -232,6 +234,13 @@ def cases(world, inputs):
             res["images"][(arch, layout)] = {
                 "plain": _img_record(img0), "round_trip": _img_record(back),
                 "own": _img_record(own)}
+        # kv_layout="auto": the layout its traced token steps count fewer
+        # collective bytes for, chosen with no collective of the mesh's
+        mesh.reset_collectives()
+        eng = _engine(cfg, params, mesh, "auto")
+        res["auto"][arch] = {"kv_layout": eng.kv_layout,
+                             "report": eng.layout_report,
+                             "collectives": _collectives(mesh)}
     cfg, params = inputs["qwen3-0.6b"]["cfg"], inputs["qwen3-0.6b"]["params"]
     prompts = inputs["qwen3-0.6b"]["prompts"]
     if world == 4:

@@ -28,10 +28,16 @@ tests.
     a block image through the sharded pool is the unmeshed pool's, bytes
     and CRC; blocks carry the mesh's placement and ``VBProps.SHARDED``;
   * the refusals (the kernel on a wide ``model`` axis and on a
-    ``data``-only mesh, ``kv_layout='auto'`` on a wide ``model`` axis)
-    and the launcher (``--mesh-shape 1x2 --kv-layout shard``, with and
-    without ``--disagg``) in 2 ranks; a ``data`` axis wider than 1 serves
-    (``test_torch_mesh_serve_data.py``);
+    ``data``-only mesh) and the launcher (``--mesh-shape 1x2 --kv-layout
+    shard``, with and without ``--disagg``) in 2 ranks; a ``data`` axis
+    wider than 1 serves (``test_torch_mesh_serve_data.py``);
+  * ``kv_layout='auto'`` on 1x2 and 1x4: every rank builds, with the
+    same choice and report, no collective of the mesh's; the choice is
+    the argmin of the two layouts' counted collective bytes (a tie to
+    ``shard``) and the layout whose gloo decode step measured fewer
+    bytes; the counting mesh's trace of a decode step
+    (``serve/engine.py::trace_token_step``) equals the gloo step's
+    collectives, calls and bytes by kind;
   * ``moe_ep`` (``distributed/moe_ep.py``) against the port's local MoE
     and the reference's ``_moe_local``: at one token per sequence on 1x2
     and 1x4 (expert-parallel, two all-to-alls a call), the TP fallback
@@ -340,13 +346,63 @@ def test_mesh_placement_is_a_block_property(spawned, world):
 
 @pytest.mark.parametrize("case,exc,item", [
     ("kernel", "ValueError", "kernel"),
-    ("data", "ValueError", "kernel"),
-    ("auto", "NotImplementedError", "A15b")])
+    ("data", "ValueError", "kernel")])
 @pytest.mark.parametrize("world", WORLDS)
 def test_mesh_refusals(spawned, world, case, exc, item):
     for rank in _ranks(spawned, world):
         got = rank["refusals"][case]
         assert got[0] == exc and item in got[1], got
+
+
+def _step_bytes(step):
+    return sum(c["bytes"] for c in step.values())
+
+
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_auto_layout_picks_the_cheaper(spawned, world, arch):
+    """``kv_layout='auto'`` builds on every rank with one choice: the
+    argmin of the two traced layouts' collective bytes (a tie keeps
+    ``shard``), the layout whose gloo decode step measured fewer bytes;
+    the mesh made no collective while the engine chose."""
+    ranks = _ranks(spawned, world)
+    autos = [r["auto"][arch] for r in ranks]
+    for a in autos:
+        cand = a["report"]["candidates"]
+        want = ("shard" if cand["shard"]["collective_bytes"]
+                <= cand["replicate"]["collective_bytes"] else "replicate")
+        assert a["kv_layout"] == a["report"]["chosen"] == want
+        assert set(cand["shard"]) == {"collective_bytes",
+                                      "predicted_comms_share", "flops"}
+        assert all(c["calls"] == 0 and c["bytes"] == 0
+                   for c in a["collectives"].values()), a["collectives"]
+        assert a["kv_layout"] == autos[0]["kv_layout"]
+        assert a["report"] == autos[0]["report"]
+    measured = {lay: _step_bytes(ranks[0]["logits"][(arch, lay)]["step"])
+                for lay in W.LAYOUTS}
+    cheaper = ("shard" if measured["shard"] <= measured["replicate"]
+               else "replicate")
+    assert autos[0]["kv_layout"] == cheaper, (measured, autos[0]["report"])
+
+
+@pytest.mark.parametrize("layout", W.LAYOUTS)
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("world", WORLDS)
+def test_counting_mesh_trace_equals_gloo_step(spawned, world, arch, layout):
+    """The dry run's trace of one decode token step (rank 0 of a
+    ``CountingMesh`` on meta) makes the collectives, calls and bytes by
+    kind, that the gloo step measured on every rank."""
+    from repro_torch.launch.mesh import CountingMesh
+    from repro_torch.serve.engine import pool_geometry, trace_token_step
+    cfg, tp = _port(arch)
+    shape = {"data": 1, "model": world}
+    eng = W._engine(cfg, tp, CountingMesh(shape, device_type="cpu"), layout)
+    pool = pool_geometry(eng.cfg, eng.geom, eng.n_pages, eng.page_size,
+                         eng.max_seqs, eng.max_pages)
+    _, mesh = trace_token_step(eng.cfg, eng.geom, shape, layout, eng.params,
+                               pool, eng.max_pages)
+    for r in _ranks(spawned, world):
+        assert r["logits"][(arch, layout)]["step"] == mesh.collectives
 
 
 def _calls(collectives):
@@ -475,9 +531,9 @@ def test_mesh_1x1_bit_equal_unmeshed(arch):
         meshed, _ = W._serve(eng, prompts, W.MAX_NEW, k)
         assert meshed == plain
         assert eng.kv_layout == "shard" and eng.placement == ("cpu:0",)
-    a, _, img_a = W._step_logits(W._engine(cfg, tp), prompts)
-    b, _, img_b = W._step_logits(W._engine(cfg, tp, mesh, "replicate"),
-                                 prompts)
+    a, _, img_a, _ = W._step_logits(W._engine(cfg, tp), prompts)
+    b, _, img_b, _ = W._step_logits(W._engine(cfg, tp, mesh, "replicate"),
+                                    prompts)
     assert torch.equal(a, b) and img_a.checksum == img_b.checksum
     assert all(c["calls"] == 0 and c["bytes"] == 0
                for c in mesh.collectives.values())

@@ -68,8 +68,9 @@ from repro_torch.distributed.sharding import (ParamBlocks, Spec,
                                               serve_state_specs,
                                               shard_params)
 from repro_torch.launch import serve as tserve
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import CountingMesh, Mesh
 from repro_torch.models.model import init_params
+from repro_torch.serve.engine import pool_geometry, trace_token_step
 
 WORLDS = (2, 4)
 MESHES = [m for w in WORLDS for m in W.MESHES[w]]
@@ -388,6 +389,27 @@ def test_data_mesh_collectives_per_token_step(spawned, mesh, arch, layout):
                if k in want}
         assert got == want, f"{_label(mesh)} {arch} {layout}"
         assert all(step[k]["calls"] == 0 for k in step if k not in want)
+
+
+@pytest.mark.parametrize("layout", W.LAYOUTS)
+@pytest.mark.parametrize("arch", W.ARCHS)
+@pytest.mark.parametrize("mesh", MESHES, ids=_label)
+def test_counting_mesh_trace_equals_gloo_step(spawned, mesh, arch, layout):
+    """The dry run's trace of one decode token step (rank 0 of a
+    ``CountingMesh`` on meta, ``serve/engine.py::trace_token_step``)
+    makes the collectives, calls and bytes by kind, that the gloo step
+    measured on every rank, on every mesh the formula covers and the
+    recurrent stacks on 2x2 beside them."""
+    cfg, tp = _port(arch)
+    shape = {"data": mesh[0], "model": mesh[1]}
+    eng = W._engine(cfg, tp, CountingMesh(shape, device_type="cpu"), layout)
+    pool = pool_geometry(eng.cfg, eng.geom, eng.n_pages, eng.page_size,
+                         eng.max_seqs, eng.max_pages)
+    _, counting = trace_token_step(eng.cfg, eng.geom, shape, layout,
+                                   eng.params, pool, eng.max_pages)
+    for r in _ranks(spawned, _world(mesh)):
+        step = r["meshes"][mesh]["logits"][(mesh, arch, layout)]["step"]
+        assert step == counting.collectives
 
 
 @pytest.mark.parametrize("arch", W.FALLBACK_ARCHS)

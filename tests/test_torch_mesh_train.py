@@ -80,11 +80,14 @@ from repro_torch.distributed import compression as tc
 from repro_torch.distributed import sharding as ts
 from repro_torch.distributed.axes import logical_axes
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import Mesh, make_host_mesh, make_production_mesh
+from repro_torch.launch.dryrun import trace_train_step
+from repro_torch.launch.mesh import (CountingMesh, Mesh, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.specs import batch_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import params_from_numpy, params_shape
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import abstract_train_state, make_train_step
 
 #: the ranks' time limit (all cases in one group)
 JOIN_S = 240
@@ -289,6 +292,25 @@ def test_collective_counts_match_formula(spawned, shape, accum, remat):
     for rank in _ranks(spawned):
         got = rank["matrix"][(shape, accum, remat)]["collectives"]
         assert {k: c["calls"] for k, c in got.items()} == want
+
+
+@pytest.mark.parametrize("remat", W.REMATS)
+@pytest.mark.parametrize("accum", W.ACCUMS)
+@pytest.mark.parametrize("shape", W.SHAPES)
+def test_counting_mesh_trace_equals_gloo_step(spawned, shape, accum, remat):
+    """The dry run's trace of the step (rank 0 of a ``CountingMesh`` on
+    meta, ``launch/dryrun.py::trace_train_step``) makes the collectives,
+    calls and bytes by kind, that the gloo step measured on every
+    rank."""
+    cfg = ModelConfig(**DENSE, compute_dtype="float32", grad_accum=accum)
+    cfg = dataclasses.replace(cfg, remat=remat)
+    opt = AdamWConfig(lr=1e-3)
+    mesh = CountingMesh({"data": shape[0], "model": shape[1]})
+    trace_train_step(cfg, opt, mesh, abstract_train_state(cfg, opt),
+                     batch_specs(cfg, 8, 32))
+    for rank in _ranks(spawned):
+        got = rank["matrix"][(shape, accum, remat)]["collectives"]
+        assert got == mesh.collectives
 
 
 @pytest.mark.parametrize("name", W.EXTRA)

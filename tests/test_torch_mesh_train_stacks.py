@@ -58,11 +58,13 @@ from repro.optim.adamw import AdamWConfig as RefAdamW
 from repro_torch import tree
 from repro_torch.distributed import sharding as ts
 from repro_torch.distributed.axes import logical_axes
-from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.launch.dryrun import trace_train_step
+from repro_torch.launch.mesh import CountingMesh, Mesh, make_host_mesh
+from repro_torch.launch.specs import batch_specs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import params_from_numpy, params_shape
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import abstract_train_state, make_train_step
 
 #: the ranks' time limit (all cases in one group)
 JOIN_S = 240
@@ -371,6 +373,23 @@ def test_collective_counts_match_formula(spawned, i):
     for rank in _ranks(spawned):
         got = rank["steps"][cid]["collectives"]
         assert {k: c["calls"] for k, c in got.items()} == want, cid
+
+
+@pytest.mark.parametrize("i", range(len(W.STEP_CASES)), ids=_IDS)
+def test_counting_mesh_trace_equals_gloo_step(spawned, i):
+    """The dry run's trace of the step (rank 0 of a ``CountingMesh`` on
+    meta, ``launch/dryrun.py::trace_train_step``) makes the collectives,
+    calls and bytes by kind, that the gloo step measured on every
+    rank."""
+    cid, name, axes, remat, fsdp = W.STEP_CASES[i]
+    rc, B, S = _ref_cfgs()[name]
+    cfg = dataclasses.replace(_port_cfg(rc), remat=remat, fsdp_axes=fsdp)
+    opt = AdamWConfig(lr=1e-3)
+    mesh = CountingMesh(axes)
+    trace_train_step(cfg, opt, mesh, abstract_train_state(cfg, opt),
+                     batch_specs(cfg, B, S))
+    for rank in _ranks(spawned):
+        assert rank["steps"][cid]["collectives"] == mesh.collectives, cid
 
 
 @pytest.mark.parametrize("i", range(len(W.DROP_CASES)),
