@@ -169,20 +169,27 @@ Phases (any failure exits non-zero and prints no result line):
               naming what it needs; an engine built with ``kv_layout
               auto`` on a 1x1 mesh is ``shard`` with no collective.  It
               runs after 4k, before 4l;
- 4l. dryrun — the dry run on the meta device (a 30 s budget, reported; a
-              hang past 120 s fails): qwen3-0.6b's
-              train_4k cell on the 16x16 and 2x16x16 production meshes
-              (two ``python -m repro_torch.launch.dryrun`` processes on
-              the host): the roofline terms and bottleneck on the H100's
-              constants, collective calls and bytes by kind, bytes per
-              device, ``useful_flops_ratio``; a decode cell's A15b-iii
-              record; ``kv_layout="auto"``'s choice and both layouts'
-              collective bytes for qwen3-0.6b and recurrentgemma-9b at
-              full width on counting 1x2 and 1x4 meshes; the step cost
-              walker over a 4g-style qwen3-0.6b train step (8 x 128) on
-              the card against the same step on meta: FLOPs, bytes, ops
-              and collectives equal, no launch counter moved.  It runs
-              after 4h, before 4i;
+ 4l. dryrun — the dry run on the meta device (a 45 s budget, reported; a
+              hang past 150 s fails): qwen3-0.6b's train_4k and
+              decode_32k cells on the 16x16 and 2x16x16 production
+              meshes, its decode_32k with int8 weights on 16x16 (fewer
+              parameter bytes a device than dense) and gemma3-12b's
+              long_500k on 16x16 (its caches' sequence cut over data x
+              model), five ``python -m repro_torch.launch.dryrun``
+              processes on the host: the roofline terms and bottleneck on
+              the H100's constants, collective calls and bytes by kind,
+              bytes per device, ``useful_flops_ratio``;
+              ``kv_layout="auto"``'s choice and both layouts' collective
+              bytes for qwen3-0.6b and recurrentgemma-9b at full width on
+              counting 1x2 and 1x4 meshes; the step cost walker over a
+              4g-style qwen3-0.6b train step (8 x 128) on the card against
+              the same step on meta; qwen3-0.6b at its published 28
+              layers on the card: ``make_prefill_step`` of 4 x 256 tokens
+              and 8 greedy ``make_decode_step`` steps on a 1x1 mesh,
+              logits and caches bit-equal to the unmeshed steps, no
+              collective, and one decode step walked on the card against
+              meta: FLOPs, bytes, ops and collectives equal, no launch
+              counter moved.  It runs after 4h, before 4i;
  4i. legacy — phase 4's requests through the launcher's per-sequence path
               (``--legacy``: ``serve/paged.py::PagedServer``, attention
               through ``paged_decode_attention`` on the kernel): tokens
@@ -951,48 +958,166 @@ def _mesh_refusals():
 #: its last line reports against; its traces are host-bound and the
 #: host's speed moves 30-40% between calls, so only a hang (past
 #: ``DRYRUN_HANG_S``) fails the phase
-DRYRUN_LIMIT_S = 30.0
-DRYRUN_HANG_S = 120.0
+DRYRUN_LIMIT_S = 45.0
+DRYRUN_HANG_S = 150.0
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
 #: phase 4's pool at full width: 4 slots, pages of 8, 129 pages, 32-page
 #: rows, as ``kv_layout="auto"`` would trace it
 AUTO_POOL = dict(n_pages=129, page_size=8, max_seqs=4, max_pages=32)
+#: phase 4l's ``launch.dryrun`` children, one process a command, all
+#: started at once (each traces on the host's CPU only): name → (its
+#: arguments, the artifacts it writes).  qwen3-0.6b's train_4k and
+#: decode_32k cells on both production meshes, decode_32k with int8
+#: weights, and gemma3-12b's long_500k (batch 1: its caches' sequence cut
+#: over data x model); prefill cells stay out (about 90 s a trace)
+DRYRUN_CELLS = {
+    "train single": (["--arch", "qwen3-0.6b", "--shape", "train_4k",
+                      "--mesh", "single"], ["qwen3-0.6b_train_4k_single"]),
+    "train multi": (["--arch", "qwen3-0.6b", "--shape", "train_4k",
+                     "--mesh", "multi"], ["qwen3-0.6b_train_4k_multi"]),
+    "decode": (["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--mesh",
+                "both"], ["qwen3-0.6b_decode_32k_single",
+                          "qwen3-0.6b_decode_32k_multi"]),
+    "decode q8": (["--arch", "qwen3-0.6b", "--shape", "decode_32k",
+                   "--mesh", "single", "--quantized"],
+                  ["qwen3-0.6b_decode_32k_single_q8"]),
+    "long": (["--arch", "gemma3-12b", "--shape", "long_500k", "--mesh",
+              "single"], ["gemma3-12b_long_500k_single"]),
+}
+#: phase 4l's serve steps on the card: qwen3-0.6b's published config,
+#: ``batch`` prompts of ``prompt`` tokens, then ``steps`` greedy decodes
+DRYRUN_SERVE = dict(batch=4, prompt=256, steps=8)
 
 
 def _dryrun_children():
-    """``python -m repro_torch.launch.dryrun`` of qwen3-0.6b's train_4k
-    cell on each production mesh, one process a mesh, started at once
-    (each traces on the host's CPU only)."""
+    """``python -m repro_torch.launch.dryrun`` of each ``DRYRUN_CELLS``
+    command, started at once."""
     import os
     root = Path(__file__).resolve().parent
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(root / "src"),
                CUDA_VISIBLE_DEVICES="")
-    return {mesh: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen3-0.6b", "--shape", "train_4k", "--mesh", mesh, "--out",
-         str(DRYRUN_OUT)], cwd=root, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for mesh in ("single", "multi")}
+    return {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+         "--out", str(DRYRUN_OUT)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (argv, _) in DRYRUN_CELLS.items()}
 
 
 def _dryrun_cells(children, deadline):
-    """Wait for the children and read their artifacts: {mesh: record}."""
+    """Wait for the children and read their artifacts: {artifact:
+    record}."""
     recs = {}
-    for mesh, proc in children.items():
+    for name, proc in children.items():
         try:
             text, _ = proc.communicate(
                 timeout=max(1.0, deadline - time.perf_counter()))
         except subprocess.TimeoutExpired:
-            _fail(f"[dryrun] the {mesh} cell's trace outlasted "
+            _fail(f"[dryrun] the {name} cells' trace outlasted "
                   f"{DRYRUN_HANG_S} s")
-        path = DRYRUN_OUT / f"qwen3-0.6b_train_4k_{mesh}.json"
-        if proc.returncode != 0 or not path.exists():
-            _fail(f"[dryrun] the {mesh} cell exited {proc.returncode}: "
-                  f"{text.strip()[-2000:]}")
-        recs[mesh] = json.loads(path.read_text())
-        if not recs[mesh].get("ok") or recs[mesh].get("skipped"):
-            _fail(f"[dryrun] the {mesh} cell: {recs[mesh]}")
+        for art in DRYRUN_CELLS[name][1]:
+            path = DRYRUN_OUT / f"{art}.json"
+            if proc.returncode != 0 or not path.exists():
+                _fail(f"[dryrun] the {name} cells exited {proc.returncode}:"
+                      f" {text.strip()[-2000:]}")
+            recs[art] = json.loads(path.read_text())
+            if not recs[art].get("ok") or recs[art].get("skipped"):
+                _fail(f"[dryrun] the {art} cell: {recs[art]}")
     return recs
+
+
+def _serve_steps_1x1(torch, dev, card):
+    """``make_prefill_step`` on ``DRYRUN_SERVE``'s prompts and its greedy
+    ``make_decode_step`` steps for qwen3-0.6b at its published config
+    (random weights from seed 0) on the card, with no mesh and inside a
+    1x1 mesh's ``logical_axes``: every step's logits and the caches
+    bit-equal, no collective; then one decode step walked on the card and
+    on meta: FLOPs, bytes, ops and collectives equal, and no kernel's
+    launch counter moved in the phase (the dense steps attend by the
+    plain path, in both packages)."""
+    from contextlib import nullcontext
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import hlo_cost
+    from repro_torch.distributed.axes import logical_axes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import (abstract_cache, abstract_params,
+                                          init_params)
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    from repro_torch.tree import leaves
+    cfg = get_config("qwen3-0.6b")
+    B, S, n = (DRYRUN_SERVE[k] for k in ("batch", "prompt", "steps"))
+    L = S + n
+    before = hlo_cost._launch_counts()
+    params = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    mesh = make_host_mesh(1, 1, device="cuda")
+
+    def run(scope):
+        t0 = time.perf_counter()
+        with scope:
+            logits, caches = make_prefill_step(cfg, L)(params,
+                                                       {"tokens": tokens})
+            outs = [logits]
+            step = make_decode_step(cfg)
+            for i in range(n):
+                logits, caches = step(params, caches, outs[-1].argmax(
+                    -1).to(torch.int32), S + i)
+                outs.append(logits)
+        torch.cuda.synchronize()
+        return outs, caches, time.perf_counter() - t0
+
+    plain, p_caches, plain_s = run(nullcontext())
+    meshed, m_caches, mesh_s = run(logical_axes(mesh))
+    equal = all(torch.equal(a, b) for a, b in
+                zip(leaves([plain, list(p_caches)]),
+                    leaves([meshed, list(m_caches)]), strict=True))
+    calls = sum(c["calls"] for c in mesh.collectives.values())
+    finite = all(bool(torch.isfinite(x).all()) for x in meshed)
+    toks = [x.argmax(-1)[:, 0].tolist() for x in meshed]
+    if not equal or calls or not finite:
+        _fail(f"[dryrun] the 1x1 serve steps: bit-equal {equal}, "
+              f"collectives {mesh.collectives}, finite {finite}")
+    print(f"[dryrun] {card}: qwen3-0.6b ({cfg.n_layers} layers) prefill of "
+          f"{B} x {S} "
+          f"tokens and {n} greedy decode steps, unmeshed ({plain_s:.2f} s) "
+          f"and on a 1x1 mesh ({mesh_s:.2f} s): logits and caches "
+          f"bit-equal, 0 collectives; greedy tokens by step {toks}")
+    token = meshed[-1].argmax(-1).to(torch.int32)
+    t0 = time.perf_counter()
+    on_card = hlo_cost.trace_step(make_decode_step(cfg), params, p_caches,
+                                  token, L)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del params, p_caches, m_caches, on_card.result
+    _free(torch)
+    t0 = time.perf_counter()
+    on_meta = hlo_cost.trace_step(
+        make_decode_step(cfg), abstract_params(cfg),
+        abstract_cache(cfg, B, L),
+        torch.empty((B, 1), dtype=torch.int32, device="meta"), L)
+    meta_s = time.perf_counter() - t0
+    after = hlo_cost._launch_counts()
+    a, b = on_card.report(), on_meta.report()
+    keys = ("flops", "bytes", "bytes_min", "collectives",
+            "collective_counts")
+    if any(a[k] != b[k] for k in keys) or on_card.n_ops != on_meta.n_ops:
+        _fail(f"[dryrun] the walker's card and meta counts of a decode "
+              f"step differ: card {a}, {on_card.n_ops} ops; meta {b}, "
+              f"{on_meta.n_ops} ops")
+    if after != before:
+        _fail(f"[dryrun] launch counters {before} -> {after} in the serve "
+              f"steps")
+    print(f"[dryrun] {card}: qwen3-0.6b decode step ({B} sequences, caches "
+          f"of {L}) walked on the card ({card_s:.2f} s) and on meta "
+          f"({meta_s:.2f} s): equal, {on_card.n_ops} ops, "
+          f"{a['flops']:.6e} FLOPs, {a['bytes']:.6e} bytes, bytes_min "
+          f"{a['bytes_min']:.6e}, collectives {a['collectives']['total']}; "
+          f"launch counters unchanged {after}")
+    return a
 
 
 def _walker_card_vs_meta(torch, dev, card):
@@ -1089,35 +1214,40 @@ def _auto_layouts():
 
 
 def phase_dryrun(torch, dev, card):
-    """Phase 4l: the dry run on the host, beside one step on the card.
-    qwen3-0.6b's train_4k cell on both production meshes (two
-    ``launch.dryrun`` processes, started first), a serve cell's A15b-iii
-    record, ``kv_layout="auto"``'s choice at full width on counting 1x2
-    and 1x4 meshes, and the walker's card and meta counts of a 4g-style
-    train step, reported against ``DRYRUN_LIMIT_S``."""
-    from repro_torch.launch import dryrun
+    """Phase 4l: the dry run on the host, beside steps on the card.  The
+    ``DRYRUN_CELLS`` (``launch.dryrun`` processes, started first),
+    ``kv_layout="auto"``'s choice at full width on counting 1x2 and 1x4
+    meshes, the walker's card and meta counts of a 4g-style train step,
+    and the 1x1 serve steps on the card (:func:`_serve_steps_1x1`),
+    reported against ``DRYRUN_LIMIT_S``."""
     t0 = time.perf_counter()
     children = _dryrun_children()
     try:
-        rec = dryrun.lower_cell("qwen3-0.6b", "decode_32k", False)
-        if rec["ok"] or "A15b-iii" not in rec.get("error", ""):
-            _fail(f"[dryrun] a serve cell did not record A15b-iii: {rec}")
-        print(f"[dryrun] qwen3-0.6b decode_32k single: ok false, "
-              f"{rec['error']}")
         _auto_layouts()
         _walker_card_vs_meta(torch, dev, card)
+        _free(torch)
+        _serve_steps_1x1(torch, dev, card)
         recs = _dryrun_cells(children, t0 + DRYRUN_HANG_S)
     finally:
         for proc in children.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    for mesh, r in recs.items():
+    q8, dense = (recs[f"qwen3-0.6b_decode_32k_single{t}"]["memory"]
+                 for t in ("_q8", ""))
+    if (q8["argument_size_in_bytes"] - q8["alias_size_in_bytes"]
+            >= dense["argument_size_in_bytes"]
+            - dense["alias_size_in_bytes"]):
+        _fail(f"[dryrun] the int8 decode cell holds no fewer parameter "
+              f"bytes than the dense one: {q8} vs {dense}")
+    for r in recs.values():
         rl, mem = r["roofline"], r["memory"]
         calls = {k: int(v) for k, v in r["collective_counts"].items() if v}
         byts = {k: int(v) for k, v in r["collectives"].items()
                 if v and k != "total"}
-        print(f"[dryrun] qwen3-0.6b train_4k {mesh} ({r['n_devices']} "
+        label = (f"{r['arch']} {r['shape']} {r['mesh']}"
+                 + (" int8" if r["quantized"] else ""))
+        print(f"[dryrun] {label} ({r['n_devices']} "
               f"devices, traced in {r['lower_s']} s, {r['n_ops']} ops): "
               f"compute {rl['compute_s']:.6f} s, memory "
               f"{rl['memory_s']:.6f} s (max {rl['memory_s_max']:.6f}), "
@@ -1125,7 +1255,8 @@ def phase_dryrun(torch, dev, card):
               f"{rl['bottleneck']} (H100 constants: 989e12 FLOP/s, "
               f"3.35e12 B/s, 50e9 B/s); collective calls {calls}, bytes "
               f"{byts}; bytes per device {r['bytes_per_device_live']} "
-              f"(argument {mem['argument_size_in_bytes']}, temp "
+              f"(argument {mem['argument_size_in_bytes']}, alias "
+              f"{mem['alias_size_in_bytes']}, temp "
               f"{mem['temp_size_in_bytes']}); useful_flops_ratio "
               f"{r['useful_flops_ratio']:.6f}")
     took = time.perf_counter() - t0

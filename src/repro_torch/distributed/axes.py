@@ -3,8 +3,10 @@
 
 Tokens: 'batch' → the data-parallel axes of the active mesh ('pod',
 'data'); 'model' → the tensor-parallel axis; 'expert' → 'model' when EP
-is active; 'seq' → sequence sharding for long-context decode.  Outside a
-``logical_axes(mesh)`` scope every constraint is a no-op.
+is active.  Outside a ``logical_axes(mesh)`` scope every constraint is a
+no-op.  Where a decode cache's sequence is cut is not a logical axis:
+``sharding.cache_specs`` decides it from the batch alone, and
+:func:`seq_axis` reads the axes it chose.
 
 The reference's ``constrain`` asks GSPMD for a layout.  The port runs one
 process per mesh device, so a tensor here is either whole on every rank
@@ -101,8 +103,7 @@ def in_scope(scope: tuple):
 
 
 @contextlib.contextmanager
-def logical_axes(mesh, n_experts: int = 0, seq_shard: bool = False,
-                 batch_cut: bool = True):
+def logical_axes(mesh, n_experts: int = 0, batch_cut: bool = True):
     """The scope of the logical axes on ``mesh``.  ``batch_cut`` says
     whether the model's batch inside is this rank's block over the batch
     axes (:func:`batch_cut`; the serve engine passes whether the batch
@@ -115,8 +116,6 @@ def logical_axes(mesh, n_experts: int = 0, seq_shard: bool = False,
         "expert": ("model" if ("model" in names and n_experts
                                and n_experts % mesh.shape["model"] == 0)
                    else None),
-        "seq": (("data", "model") if seq_shard and "data" in names
-                else ("model" if "model" in names else None)),
     }
     tok = _AXES.set({"mesh": mesh, "map": mapping,
                      "batch_cut": bool(batch_cut)})
@@ -148,6 +147,29 @@ def data_axis():
     axes = mesh.wide(_axes_of(ctx, "batch"))
     return (mesh, mesh.axis_size(axes), mesh.axis_index(axes)) if axes \
         else None
+
+
+def seq_axis(axes):
+    """(mesh, n, index) of the axes a decode cache's sequence is cut over
+    when they are wider than 1, else None (and None outside a scope).
+    ``axes`` is the cut ``sharding.cache_specs`` gave the cache's seq
+    dim: ``model`` where the batch axes divide the batch, else
+    ``("data", "model")`` (the ``pod`` axis stays whole), None where the
+    sequence does not divide; ``index`` is row-major over the wide ones
+    in mesh order, the order of a ``Sharding``'s blocks."""
+    ctx = _AXES.get()
+    if ctx is None or axes is None:
+        return None
+    mesh = ctx["mesh"]
+    wide = mesh.wide(axes)
+    return (mesh, mesh.axis_size(wide), mesh.axis_index(wide)) if wide \
+        else None
+
+
+def scope_mesh():
+    """The mesh of the active ``logical_axes`` scope, or None."""
+    ctx = _AXES.get()
+    return None if ctx is None else ctx["mesh"]
 
 
 def _axes_of(ctx, name: Optional[str]) -> Tuple[str, ...]:

@@ -15,6 +15,8 @@ rank holds only its block of every sharded leaf.
 
 ``state_specs`` and ``batch_spec`` are the train half, and
 :func:`shard_state` cuts a whole train state into one rank's blocks.
+``cache_specs`` cuts the dense decode caches (:class:`CacheBlocks`; the
+serve steps of ``serve/step.py``).
 ``placement_hint`` maps VBI property bits to placement preferences (the
 data-aware hook, DESIGN.md §2).
 """
@@ -397,6 +399,17 @@ def _cut(tree, shardings, dev):
         return tree.to(dev)
     blk = shardings.local(tree)
     return torch.empty(blk.shape, dtype=blk.dtype, device=dev).copy_(blk)
+
+
+class CacheBlocks(list):
+    """Decode caches cut to one rank's blocks by :func:`cache_specs`
+    (``models/model.py::init_cache`` under a mesh's ``logical_axes``);
+    ``mesh`` is the mesh they were cut for and ``specs`` the spec tree
+    that cut them: the decode step reads from it whether a cache's
+    sequence is a block, which its length alone cannot say.  A plain list
+    of caches is whole on every rank."""
+    mesh: Any = None
+    specs: Any = None
 
 
 def shard_state(cfg: ModelConfig, state, mesh, device=None):

@@ -73,7 +73,7 @@ def q_forward(cfg: ModelConfig, params, qls, tokens: torch.Tensor
     for li, q in enumerate(qls):
         lp = _layer_params(stacked, li)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _self_attn_full(LayerSpec("attn"), cfg, lp["attn"], h)
+        x = x + _self_attn_full(LayerSpec("attn"), cfg, lp["attn"], h)[0]
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         ff = torch.nn.functional.silu(q["w1"](h2)) * q["w3"](h2)
         x = x + q["w2"](ff)

@@ -17,23 +17,32 @@ H100's constants (``distributed/hlo_analysis.py``).  A train cell traces
 the SPMD train step: the state ``abstract_train_state`` cut by
 ``state_specs`` (``shard_state``), the global batch cut by
 ``batch_spec`` inside the step, the optimizer config :func:`_opt_cfg`.
+A prefill or decode cell traces ``serve/step.py``'s step on the mesh
+(:func:`trace_serve_step`): the params ``abstract_params`` (int8 first
+under ``--quantized``: ``quantize_serving_params`` of the meta tree) cut
+by ``param_specs`` (``shard_params``), the decode caches
+``abstract_cache``'s blocks by ``cache_specs``, the batch cut by
+``batch_spec`` (``cache_specs`` cuts a decode cache's sequence over
+``data x model`` where the batch axes do not divide the batch, as at
+the reference's decode batch 1).  A quantized train cell records the
+reference's refusal.
 
 Each cell writes one JSON artifact under ``--out`` (default
 ``results/dryrun``).  Its keys are the reference's where they mean the
 same thing: ``roofline``, ``collectives``, ``collective_counts``,
 ``model_flops``, ``useful_flops_ratio``, ``n_devices``,
 ``bytes_per_device_live`` and ``memory`` with ``argument_size_in_bytes``
-(this rank's state and batch blocks), ``output_size_in_bytes`` (the
-state and the metrics), ``alias_size_in_bytes`` (the state, updated in
-place) and ``temp_size_in_bytes`` (the peak of the live intermediates the
-walker saw); ``lower_s`` is the trace's time.  ``stage_loops`` is the
-walker's ``while_report``.  With no counterpart, ``compile_s``,
+(this rank's state and batch blocks; at a serve cell its param, cache
+and batch blocks), ``output_size_in_bytes`` (the state and the metrics;
+the caches and the logits), ``alias_size_in_bytes`` (the state, updated
+in place; the caches at decode, which the reference donates, and 0 at
+prefill) and ``temp_size_in_bytes`` (the peak of the live intermediates
+the walker saw); ``lower_s`` is the trace's time.  ``stage_loops`` is the
+walker's ``while_report``.  A prefill cell's ``whole_over_model`` names
+what its step computes whole on every ``model`` rank
+(:func:`whole_over_model`), the overcount in its ``useful_flops_ratio``.
+With no counterpart, ``compile_s``,
 ``generated_code_size_in_bytes`` and ``xla_cost_analysis`` are left out.
-
-Prefill and decode cells, and ``--quantized``, need ``decode_step`` and
-``prefill`` on a mesh with caches cut by ``cache_specs``, which the port
-does not have yet: they write ``ok: false`` with an error naming
-ROADMAP.md § A15b-iii.
 """
 from __future__ import annotations
 
@@ -50,18 +59,18 @@ from ..configs import ARCH_IDS, get_config
 from ..distributed import hlo_cost
 from ..distributed.axes import logical_axes
 from ..distributed.hlo_analysis import roofline_from_step
-from ..distributed.sharding import batch_spec, shard_state, shardings_of
+from ..distributed.sharding import (batch_axes_for, batch_spec, shard_params,
+                                    shard_state, shardings_of)
 from ..models.config import ModelConfig
+from ..models.model import abstract_cache, heads_cut_on
+from ..models.quantized import quantize_serving_params
 from ..optim.adamw import AdamWConfig
+from ..serve.step import make_decode_step, make_prefill_step
 from ..train.step import make_train_step
 from ..tree import leaves
 from .mesh import make_production_mesh
-from .specs import SHAPES, cell_skip_reason, input_specs, model_flops_estimate
-
-SERVE_ON_MESH = ("prefill and decode cells (and --quantized) need "
-                 "decode_step/prefill on a mesh with caches cut by "
-                 "cache_specs, which the port does not have yet "
-                 "(ROADMAP.md § A15b-iii)")
+from .specs import (SHAPES, batch_specs, cell_skip_reason, input_specs,
+                    model_flops_estimate)
 
 
 def _opt_cfg(cfg: ModelConfig) -> AdamWConfig:
@@ -71,7 +80,8 @@ def _opt_cfg(cfg: ModelConfig) -> AdamWConfig:
 
 
 def _nbytes(tree) -> int:
-    return sum(t.nelement() * t.element_size() for t in leaves(tree))
+    return sum(t.nelement() * t.element_size() for t in leaves(tree)
+               if isinstance(t, torch.Tensor))
 
 
 def trace_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, state,
@@ -92,10 +102,65 @@ def trace_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, state,
     return cost, arg_bytes
 
 
+def _local(cfg: ModelConfig, batch, mesh):
+    """This rank's blocks of a batch's leaves by ``batch_spec``."""
+    sh = shardings_of(batch_spec(cfg, batch, mesh), mesh)
+    return {k: sh[k].local(v) for k, v in batch.items()}
+
+
+def trace_serve_step(cfg: ModelConfig, mesh, kind: str, B: int, S: int,
+                     params):
+    """Rank ``mesh.rank``'s serve step on ``mesh`` (a ``CountingMesh``),
+    traced by the step cost walker: ``kind="prefill"`` the prefill of B
+    prompts of S tokens into caches of S, ``"decode"`` one token of B
+    sequences against caches of S at the last position.  ``params`` is
+    the whole (meta) tree, cut by ``param_specs``; the caches are
+    ``abstract_cache``'s blocks by ``cache_specs`` and the batch is cut
+    by ``batch_spec``, inside ``logical_axes`` with the batch axes' cut.
+    Returns (the walker's cost, whose ``result`` is the step's (logits,
+    caches); the bytes of this rank's arguments; the bytes of its caches,
+    which a decode step updates in place)."""
+    blocks = shard_params(cfg, params, mesh, "meta")
+    n_b = mesh.axis_size(batch_axes_for(mesh))
+    with logical_axes(mesh, n_experts=cfg.n_experts,
+                      batch_cut=B % n_b == 0):
+        if kind == "prefill":
+            batch = _local(cfg, batch_specs(cfg, B, S), mesh)
+            args, caches = (blocks, batch), ()
+            fn = make_prefill_step(cfg, S)
+        else:
+            caches = abstract_cache(cfg, B, S)
+            token = _local(cfg, {"token": torch.empty(
+                (B, 1), dtype=torch.int32, device="meta")}, mesh)["token"]
+            args = (blocks, caches, token, S - 1)
+            fn = make_decode_step(cfg)
+        cost = hlo_cost.trace_step(fn, *args, mesh=mesh)
+    return cost, _nbytes(args), _nbytes(caches)
+
+
+def whole_over_model(cfg: ModelConfig, M: int) -> list:
+    """What a prefill on a ``model`` axis M wide computes whole on every
+    rank, each an overcount of its FLOPs beside one device's work cut M
+    ways: attention whose query heads do not split over M
+    (``models/model.py::heads_cut_on``; elsewhere each rank attends with
+    its block of heads) and the RG-LRU and Mamba-2 scans, which run on the
+    width their projections' blocks were gathered to (``rglru_forward``,
+    ``mamba_forward``)."""
+    if M == 1:
+        return []
+    kinds = {sp.kind for st in cfg.stages() for sp in st.period}
+    out = []
+    if (kinds & {"attn", "local"} or cfg.is_encdec) \
+            and not heads_cut_on(cfg, M):
+        out.append(f"attention ({cfg.n_heads} heads over {M})")
+    out += [f"{k} scan" for k in ("rglru", "mamba") if k in kinds]
+    return out
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                quantized: bool = False, overrides: dict = None) -> dict:
-    """One cell's record (module doc); a cell the port cannot trace yet
-    comes back ``ok: false`` with its ``error``."""
+    """One cell's record (module doc).  A quantized train cell raises the
+    reference's ``AssertionError`` (``main`` records it)."""
     cfg = get_config(arch)
     if quantized:
         cfg = dataclasses.replace(cfg, quantize_bits=8)
@@ -109,23 +174,32 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     if skip:
         rec.update(skipped=True, reason=skip, ok=True)
         return rec
-    if quantized or SHAPES[shape_name]["kind"] != "train":
-        rec.update(skipped=False, error=f"NotImplementedError: "
-                   f"{SERVE_ON_MESH}")
-        return rec
+    sh = SHAPES[shape_name]
+    if quantized and sh["kind"] == "train":
+        raise AssertionError("quantized path is serving-only")
     mesh = make_production_mesh(multi_pod=multi_pod, counting=True)
     n_dev = mesh.size
-    opt_cfg = _opt_cfg(cfg)
-    state, batch = input_specs(cfg, shape_name, opt_cfg)
     t0 = time.time()
-    cost, arg_bytes = trace_train_step(cfg, opt_cfg, mesh, state, batch)
+    if sh["kind"] == "train":
+        opt_cfg = _opt_cfg(cfg)
+        state, batch = input_specs(cfg, shape_name, opt_cfg)
+        cost, arg_bytes = trace_train_step(cfg, opt_cfg, mesh, state, batch)
+        local, metrics = cost.result
+        out_bytes = alias = _nbytes(local)
+        out_bytes += _nbytes(metrics)
+    else:
+        params = input_specs(cfg, shape_name)[0]
+        if quantized:
+            params = quantize_serving_params(params)
+        cost, arg_bytes, cache_bytes = trace_serve_step(
+            cfg, mesh, sh["kind"], sh["batch"], sh["seq"], params)
+        out_bytes = _nbytes(cost.result)
+        alias = cache_bytes
     t_lower = time.time() - t0
-    local, metrics = cost.result
-    state_bytes = _nbytes(local)
     mem_rec = {"argument_size_in_bytes": arg_bytes,
-               "output_size_in_bytes": state_bytes + _nbytes(metrics),
+               "output_size_in_bytes": out_bytes,
                "temp_size_in_bytes": cost.peak_bytes,
-               "alias_size_in_bytes": state_bytes}
+               "alias_size_in_bytes": alias}
     live = (mem_rec["argument_size_in_bytes"]
             + mem_rec["output_size_in_bytes"]
             + mem_rec["temp_size_in_bytes"]
@@ -145,6 +219,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         model_flops=mf,
         useful_flops_ratio=mf / total_flops if total_flops else None,
     )
+    if sh["kind"] == "prefill":
+        rec["whole_over_model"] = whole_over_model(cfg, mesh.shape["model"])
     return rec
 
 
@@ -156,7 +232,8 @@ def main(argv=None) -> None:
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--quantized", action="store_true",
-                    help="int8 bit-plane weight path (serving cells)")
+                    help="int8 weights (serving cells; a train cell is "
+                         "refused)")
     ap.add_argument("--out", default="results/dryrun")
     args = ap.parse_args(argv)
 

@@ -34,7 +34,7 @@ from __future__ import annotations
 import datetime
 import math
 import os
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -268,11 +268,15 @@ class CountingMesh(Mesh):
     "result_bytes"}``, what ``hlo_analysis.collective_bytes`` reads.
     :meth:`agree` counts its all-reduce and returns this rank's flag.
     ``device_type`` is ``meta`` unless the traced tensors live elsewhere
-    (the values a collective returns there are garbage)."""
+    (the values a collective returns there are garbage).  A collective
+    over a tuple of axes that no process group of a real mesh of the
+    same shape spans (:func:`_group_keys`) raises, as it would there."""
 
     def __init__(self, axes: Dict[str, int], rank: int = 0,
                  device_type: str = "meta"):
         super().__init__(axes=axes, rank=rank, device_type=device_type)
+        self.groups.update({k: None for k in _group_keys(self.shape)
+                            if len(k) > 1})
 
     def __repr__(self) -> str:
         return f"CountingMesh({self.shape}, rank {self.rank})"
@@ -294,13 +298,18 @@ class CountingMesh(Mesh):
                    op: str = "sum") -> torch.Tensor:
         if op not in ("sum", "max"):
             raise ValueError("all_reduce op must be one of ['sum', 'max']")
-        return self._record("all_reduce", x, x) if self.wide(axis) else x
+        wide = self.wide(axis)
+        if not wide:
+            return x
+        self._group(wide)
+        return self._record("all_reduce", x, x)
 
     def all_gather(self, x: torch.Tensor, dim: int, axis: Axis = "model"
                    ) -> torch.Tensor:
         wide = self.wide(axis)
         if not wide:
             return x
+        self._group(wide)
         x = x.contiguous()
         shape = list(x.shape)
         shape[dim] *= self.axis_size(wide)
@@ -311,6 +320,7 @@ class CountingMesh(Mesh):
         wide = self.wide(axis)
         if not wide:
             return x
+        self._group(wide)
         n = self.axis_size(wide)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
@@ -324,6 +334,7 @@ class CountingMesh(Mesh):
         wide = self.wide(axis)
         if not wide:
             return x
+        self._group(wide)
         n = self.axis_size(wide)
         if x.shape[0] % n:
             raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
@@ -333,7 +344,11 @@ class CountingMesh(Mesh):
 
     def broadcast(self, x: torch.Tensor, src: int = 0, axis: Axis = "model"
                   ) -> torch.Tensor:
-        return self._record("broadcast", x, x) if self.wide(axis) else x
+        wide = self.wide(axis)
+        if not wide:
+            return x
+        self._group(wide)
+        return self._record("broadcast", x, x)
 
     def ppermute(self, x: torch.Tensor, axis: str = "pipe",
                  shift: int = 1) -> torch.Tensor:
@@ -359,13 +374,12 @@ def _coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
     return {a: out[a] for a in shape}
 
 
-def _axis_groups(shape: Dict[str, int], rank: int) -> Dict:
-    """One process group per axis wider than 1, and one per tuple of axes
-    a collective spans together (the batch axes when both are wide, every
-    wide axis when more than one is): this rank's member of each.  Every
-    rank creates every group, in the same order, as ``dist.new_group``
-    requires; a group's ranks are ascending, so its index order is
-    row-major over its axes in mesh order."""
+def _group_keys(shape: Dict[str, int]) -> List[Tuple[str, ...]]:
+    """The axes of each process group of a mesh of ``shape``: one per
+    axis wider than 1, and one per tuple of axes a collective spans
+    together (the batch axes when both are wide, every wide axis when
+    more than one is, and ``data x model``, which a decode cache's
+    sequence is cut over, beside a wide ``pod``)."""
     wide = tuple(a for a in shape if shape[a] > 1)
     keys = [(a,) for a in wide]
     batch = tuple(a for a in wide if a in BATCH_AXES)
@@ -373,6 +387,18 @@ def _axis_groups(shape: Dict[str, int], rank: int) -> Dict:
         keys.append(batch)
     if len(wide) > 1 and wide not in keys:
         keys.append(wide)
+    seq = tuple(a for a in wide if a in ("data", "model"))
+    if len(seq) > 1 and seq not in keys:
+        keys.append(seq)
+    return keys
+
+
+def _axis_groups(shape: Dict[str, int], rank: int) -> Dict:
+    """This rank's member of each process group :func:`_group_keys`
+    names.  Every rank creates every group, in the same order, as
+    ``dist.new_group`` requires; a group's ranks are ascending, so its
+    index order is row-major over its axes in mesh order."""
+    keys = _group_keys(shape)
     groups: Dict = {a: None for a in shape}
     n = math.prod(shape.values())
     all_coords = [_coords(shape, r) for r in range(n)]

@@ -32,11 +32,17 @@ Gradients are autograd's over these ops; with ``cfg.remat`` a train
 forward that records them runs each decoder and encoder layer under
 ``torch.utils.checkpoint`` (``remat_policy="dots"`` keeps the outputs of
 the 2-D matmuls), which changes memory only.
+
+``prefill`` and ``decode_step`` also run one rank's blocks of a device
+mesh (``serve/step.py``): ``shard_params`` blocks whose layers gather
+their FSDP blocks, caches cut by ``cache_specs`` (``CacheBlocks``), and
+a decode attention that is sequence-parallel over a cut cache.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Optional, Tuple, Union
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,11 +50,14 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from ..device import resolve_device
 from ..distributed import hlo_cost
-from ..distributed.axes import in_scope, train_mesh, train_scope
-from ..distributed.sharding import param_specs
+from ..distributed.axes import (batch_cut, data_axis, in_scope, model_axis,
+                                scope_mesh, seq_axis, to_block, train_mesh,
+                                train_scope)
+from ..distributed.sharding import (CacheBlocks, Sharding, cache_specs,
+                                    param_specs, shardings_of)
 from ..tree import leaves
 from .config import LayerSpec, ModelConfig
-from .layers import attention, mlp, moe, rms_norm, rope
+from .layers import NEG_INF, attention, mlp, moe, rms_norm, rope
 from .quantized import qmm
 from .tp import (col_input, col_inputs, fsdp_layer, gather_cols,
                  row_parallel, vocab_embed)
@@ -278,35 +287,99 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Per stage, per period entry: the layer kind's cache leaves as
     ``[count, batch, ...]`` zeros (``k``/``v`` of ``[count, batch, n_kv,
     S_cache, head_dim]`` for attention); on ``device="meta"`` shapes and
-    dtypes only (:func:`abstract_cache`)."""
+    dtypes only (:func:`abstract_cache`).
+
+    Under a mesh's ``logical_axes`` ``batch`` is the whole batch and each
+    leaf is this rank's block by ``sharding.cache_specs`` (a
+    ``CacheBlocks`` carrying the specs): ``k``/``v``/``xk``/``xv`` by
+    batch and sequence, the Mamba ``state`` by heads, the RG-LRU ``h`` by
+    width, ``conv`` by channels."""
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     dtype = (_dtype(cfg.kv_cache_dtype) if cfg.kv_cache_dtype
              else _cdt(cfg))
+    mesh = scope_mesh()
     out = []
     for st in cfg.stages():
         out.append([
-            {name: torch.zeros((st.count,) + shape, dtype=dt, device=dev)
+            {name: torch.zeros((st.count,) + shape, dtype=dt,
+                               device="meta" if mesh is not None else dev)
              for name, (shape, dt) in _layer_cache_shapes(
                  spec, cfg, batch, max_len, dtype).items()}
             for spec in st.period])
-    return out
+    if mesh is None:
+        return out
+    specs = cache_specs(cfg, out, mesh, batch)
+    blocks = CacheBlocks(_zeros_blocks(out, shardings_of(specs, mesh), dev))
+    blocks.mesh, blocks.specs = mesh, specs
+    return blocks
+
+
+def _zeros_blocks(tree, shardings, dev):
+    """Zeros of each meta leaf's block by its ``Sharding``, on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _zeros_blocks(v, shardings[k], dev)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_blocks(c, s, dev) for c, s in zip(tree, shardings)]
+    return torch.zeros(shardings.local(tree).shape, dtype=tree.dtype,
+                       device=dev)
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> List:
     """The reference's ``abstract_cache`` (``jax.eval_shape`` of
-    ``init_cache``): the cache tree as meta tensors."""
+    ``init_cache``): the cache tree as meta tensors (this rank's blocks
+    under a mesh's ``logical_axes``, as :func:`init_cache`)."""
     return init_cache(cfg, batch, max_len, device="meta")
 
 
 # --------------------------------------------------------------------------
 # layer application
 # --------------------------------------------------------------------------
-def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
+def heads_cut_on(cfg: ModelConfig, M: int) -> bool:
+    """Whether the query heads split into M blocks of whole heads, each
+    reading a whole block of the kv heads or lying within one kv head:
+    the condition for :func:`_qkv`'s ``q_block``."""
+    H, KV = cfg.n_heads, cfg.n_kv
+    if not H or H % M:
+        return False
+    hb, g = H // M, H // KV
+    return hb % g == 0 or g % hb == 0
+
+
+def _heads_cut(cfg: ModelConfig) -> bool:
+    """Attention here may run on this rank's block of the query heads: a
+    serve step on a wide ``model`` axis whose heads split
+    (:func:`heads_cut_on`)."""
+    m = model_axis()
+    return (m is not None and train_mesh() is None
+            and heads_cut_on(cfg, m[1]))
+
+
+def _kv_heads(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor):
+    """k/v [B, KV, S, hd], whole over the heads, narrowed to the kv heads
+    that q [B, Hb, S, hd] reads when q is this rank's block of the query
+    heads (``_qkv(q_block=True)``); k and v as they are when q is whole."""
+    hb = q.shape[1]
+    if hb == cfg.n_heads:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv
+    kv0, n = model_axis()[2] * hb // g, max(hb // g, 1)
+    return k.narrow(1, kv0, n), v.narrow(1, kv0, n)
+
+
+def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
+         q_block: bool = False):
     """x [B, S, d] → q [B, H, S, hd], k/v [B, KV, S, hd] (qk-norm, RoPE).
-    Under the train step on a mesh the projections may be column blocks,
-    gathered whole in one all-gather (``tp.gather_cols``); head counts
-    come from the whole projections' widths."""
+    On a mesh the projections may be column blocks, gathered whole over
+    ``model`` in one all-gather (``tp.gather_cols``, in the train step
+    and the serve steps alike); head counts come from the projections'
+    widths.  With ``q_block`` in a serve step whose heads split
+    (:func:`_heads_cut`) q stays this rank's block of heads, and only k
+    and v are gathered: the attention then runs on the rank's heads
+    (:func:`_kv_heads`) into ``wo``'s row block, and k and v are whole
+    for the caches."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     wholes = (cfg.n_heads * hd, cfg.n_kv * hd, cfg.n_kv * hd)
@@ -314,7 +387,11 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     q, k, v = (qmm(xi, w) for xi, w in zip(col_inputs(x, ws, wholes), ws))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q, k, v = gather_cols((q, k, v), wholes)
+    if q_block and _heads_cut(cfg):
+        q = to_block(q, -1, wholes[0])
+        k, v = gather_cols((k, v), wholes[1:])
+    else:
+        q, k, v = gather_cols((q, k, v), wholes)
     q = q.reshape(B, S, q.shape[-1] // hd, hd).transpose(1, 2)
     k = k.reshape(B, S, k.shape[-1] // hd, hd).transpose(1, 2)
     v = v.reshape(B, S, v.shape[-1] // hd, hd).transpose(1, 2)
@@ -327,75 +404,163 @@ def _qkv(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
 
 
 def _self_attn_full(spec: LayerSpec, cfg: ModelConfig, p,
-                    x: torch.Tensor) -> torch.Tensor:
+                    x: torch.Tensor):
     """Causal self-attention over the whole sequence (prefill and train;
-    the reference's ``_self_attn_train``); ``wo`` may be a row block
-    under the train step on a mesh (``tp.row_parallel``)."""
+    the reference's ``_self_attn_train``) → (output, k, v): prefill
+    writes the caches from this k and v (one q/k/v projection a layer,
+    as XLA's common-subexpression pass leaves the reference's).  ``wo``
+    may be a row block on a mesh (``tp.row_parallel``); in a serve step
+    the attention runs on this rank's block of the heads where they
+    split (``_qkv``'s ``q_block``)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
+    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device), True)
     window = spec.window or cfg.window
-    o = attention(q, k, v, causal=True, window=window,
+    o = attention(q, *_kv_heads(cfg, q, k, v), causal=True, window=window,
                   chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k,
                   p_bf16=cfg.attn_p_bf16,
                   causal_groups=cfg.attn_causal_groups)
-    return row_parallel(o.transpose(1, 2).reshape(B, S, -1), p["wo"],
-                        cfg.n_heads * cfg.head_dim)
+    return (row_parallel(o.transpose(1, 2).reshape(B, S, -1), p["wo"],
+                         cfg.n_heads * cfg.head_dim), k, v)
+
+
+def _seq_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: Optional[torch.Tensor], seq) -> torch.Tensor:
+    """One query a sequence, q [B, H, 1, hd], against this rank's block of
+    the keys and values k/v [B, KV, S_blk, hd] (``valid`` [S_blk]: which
+    of them count; None: all), the blocks of the ranks of ``seq``
+    (``axes.seq_axis``) making the whole sequence.  Each rank's partial
+    online softmax — its running max ``m``, its sum ``l`` and its
+    ``acc = Σ e^(s - m) v`` — is combined over ``seq``'s axes with one
+    all-reduce max of ``m`` and one all-reduce sum of ``[acc·e^(m-M) |
+    l·e^(m-M)]``.  A block with no valid key is the neutral partial (l and
+    acc 0, m at the mask constant, whose weight e^(m-M) is 0 beside any
+    valid key's), so no rank takes e^(-inf + inf)."""
+    B, H, _, D = q.shape
+    KV = k.shape[1]
+    qg = q.reshape(B, KV, H // KV, 1, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg.float() * (1.0 / math.sqrt(D)),
+                     k.float())
+    if valid is not None:
+        s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    if valid is not None:
+        e = torch.where(valid, e, 0.0)
+    part = torch.cat([torch.einsum("bhgqk,bhkd->bhgqd", e, v.float()),
+                      e.sum(-1, keepdim=True)], -1)
+    big = seq.mesh.all_reduce(m.clone(), seq.axes, op="max")
+    part = seq.mesh.all_reduce((part * torch.exp(m - big)).contiguous(),
+                               seq.axes)
+    out = part[..., :D] / torch.clamp(part[..., D:], min=1e-30)
+    return out.to(q.dtype).reshape(B, H, 1, D)
+
+
+class _SeqCut(NamedTuple):
+    """A cache leaf's sequence cut: ``n`` blocks over ``axes`` of
+    ``mesh``, this rank's the ``index``-th."""
+    mesh: Any
+    n: int
+    index: int
+    axes: Any
+
+
+def _seq_block(cache_spec, name: str) -> Optional[_SeqCut]:
+    """The sequence cut of the cache leaf ``name`` (its spec's dim 3,
+    ``axes.seq_axis``), or None: the cache is whole over its sequence."""
+    if cache_spec is None:
+        return None
+    ax = cache_spec[name][3]
+    got = seq_axis(ax)
+    return None if got is None else _SeqCut(*got, ax)
 
 
 def _self_attn_decode(spec: LayerSpec, cfg: ModelConfig, p,
-                      x: torch.Tensor, cache: Dict, pos: int):
+                      x: torch.Tensor, cache: Dict, pos: int, seq=None):
     """One-token decode against a ring (window) or linear cache.  The
-    cache tensors are updated in place (the reference returns new ones)."""
+    cache tensors are updated in place (the reference returns new ones).
+
+    ``seq`` (:func:`_seq_block`) says the cache is this rank's block of
+    the sequence: q, k and v come whole over ``model`` (one all-gather),
+    only the rank whose block holds the new token's slot writes it, and
+    each rank attends over its block (:func:`_seq_attention`) before
+    ``wo``'s row block (``tp.row_parallel``).  A cache whole over its
+    sequence is attended on this rank's block of the heads where they
+    split (``_qkv``'s ``q_block``), through ``layers.attention``'s direct
+    path, the reference's formulation: an unmeshed decode computes what it
+    computed before the sequence cut existed, so every check held against
+    it (the reference within tolerance, the paged engine's tokens) holds
+    unchanged, and only a cut cache takes the partials' combine.  ``pos``
+    is a host int, the same on every rank."""
     B = x.shape[0]
-    q, k, v = _qkv(cfg, p, x, torch.full((1,), pos, device=x.device))
+    q, k, v = _qkv(cfg, p, x, torch.full((1,), pos, device=x.device),
+                   seq is None)
     ck, cv = cache["k"], cache["v"]
-    S_c = ck.shape[2]
+    n, r = (1, 0) if seq is None else (seq.n, seq.index)
+    S_blk = ck.shape[2]
+    S_c, s0 = S_blk * n, r * S_blk
     window = spec.window or cfg.window
     slot = (pos % S_c) if window else min(pos, S_c - 1)
-    ck[:, :, slot] = k[:, :, 0].to(ck.dtype)
-    cv[:, :, slot] = v[:, :, 0].to(cv.dtype)
+    if s0 <= slot < s0 + S_blk:
+        ck[:, :, slot - s0] = k[:, :, 0].to(ck.dtype)
+        cv[:, :, slot - s0] = v[:, :, 0].to(cv.dtype)
     n_valid = min(pos + 1, S_c)
-    kv_valid = (torch.arange(S_c, device=x.device)[None] < n_valid
-                ).expand(B, S_c)
-    o = attention(q, ck, cv, causal=False, window=0, kv_valid=kv_valid)
-    o = o.transpose(1, 2).reshape(B, 1, -1)
-    return qmm(o, p["wo"]), {"k": ck, "v": cv}
-
-
-def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, p, h: torch.Tensor,
-                cache: Dict) -> Dict:
-    """Recompute K/V for the cache at prefill (window layers keep the ring
-    tail)."""
-    B, S, _ = h.shape
-    _, k, v = _qkv(cfg, p, h, torch.arange(S, device=h.device))
-    S_c = cache["k"].shape[2]
-    window = spec.window or cfg.window
-    ck = torch.zeros_like(cache["k"])
-    cv = torch.zeros_like(cache["v"])
-    if window and S >= S_c:
-        # ring buffer: the last S_c tokens land at slots pos % S_c
-        idx = torch.arange(S - S_c, S, device=h.device) % S_c
-        ck[:, :, idx] = k[:, :, S - S_c:].to(ck.dtype)
-        cv[:, :, idx] = v[:, :, S - S_c:].to(cv.dtype)
+    kpos = torch.arange(s0, s0 + S_blk, device=x.device)
+    if seq is None:
+        kv_valid = (kpos[None] < n_valid).expand(B, S_c)
+        o = attention(q, *_kv_heads(cfg, q, ck, cv), causal=False,
+                      window=0, kv_valid=kv_valid)
     else:
-        n = min(S, S_c)
-        ck[:, :, :n] = k[:, :, :n].to(ck.dtype)
-        cv[:, :, :n] = v[:, :, :n].to(cv.dtype)
+        o = _seq_attention(q, ck, cv, kpos < n_valid, seq)
+    o = o.transpose(1, 2).reshape(B, 1, -1)
+    return (row_parallel(o, p["wo"], cfg.n_heads * cfg.head_dim),
+            {"k": ck, "v": cv})
+
+
+def _prefill_kv(spec: LayerSpec, cfg: ModelConfig, k: torch.Tensor,
+                v: torch.Tensor, cache: Dict, seq=None) -> Dict:
+    """Write the prompt's K/V [B, KV, S, hd] into the fresh (zero) cache
+    in place (window layers keep the ring tail, token t at slot
+    ``t % S_c``); under ``seq`` (:func:`_seq_block`) the cache is this
+    rank's block of the sequence, and takes the slots it holds."""
+    S = k.shape[2]
+    ck, cv = cache["k"], cache["v"]
+    n, r = (1, 0) if seq is None else (seq.n, seq.index)
+    S_blk = ck.shape[2]
+    S_c, s0 = S_blk * n, r * S_blk
+    window = spec.window or cfg.window
+    if window and S >= S_c:
+        # ring buffer: slot g holds the token t of the last S_c with
+        # t % S_c == g
+        g = torch.arange(s0, s0 + S_blk, device=k.device)
+        t = S - S_c + (g - S) % S_c
+        ck.copy_(k[:, :, t])
+        cv.copy_(v[:, :, t])
+    else:
+        m = max(min(min(S, S_c) - s0, S_blk), 0)
+        ck[:, :, :m] = k[:, :, s0:s0 + m].to(ck.dtype)
+        cv[:, :, :m] = v[:, :, s0:s0 + m].to(cv.dtype)
     return {"k": ck, "v": cv}
 
 
 def _cross_attn(cfg: ModelConfig, p, x: torch.Tensor, xk: torch.Tensor,
-                xv: torch.Tensor) -> torch.Tensor:
+                xv: torch.Tensor, seq=None) -> torch.Tensor:
     """x [B, S, d] attends, unmasked, to the encoder's K/V [B, KV, F, hd].
-    Under the train step on a mesh ``wq`` may be a column block (gathered
-    whole, ``tp.gather_cols``) and ``wo`` a row block
-    (``tp.row_parallel``), as in self-attention."""
+    On a mesh ``wq`` may be a column block and ``wo`` a row block
+    (``tp.row_parallel``), as in self-attention: q is gathered whole
+    (``tp.gather_cols``) under ``seq`` (decode against cached ``xk``/``xv``
+    cut over the frames, whose partials combine as in self-attention,
+    :func:`_seq_attention`) and in the train step, and otherwise stays
+    this rank's block of heads where they split (:func:`_heads_cut`)."""
     B, S, _ = x.shape
     width = cfg.n_heads * cfg.head_dim
-    q = gather_cols((qmm(col_input(x, p["wq"], width), p["wq"]),),
-                    (width,))[0]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    o = attention(q, xk, xv, causal=False, window=0)
+    q = qmm(col_input(x, p["wq"], width), p["wq"])
+    q = (to_block(q, -1, width) if seq is None and _heads_cut(cfg)
+         else gather_cols((q,), (width,))[0])
+    q = q.reshape(B, S, -1, cfg.head_dim).transpose(1, 2)
+    if seq is None:
+        o = attention(q, *_kv_heads(cfg, q, xk, xv), causal=False, window=0)
+    else:
+        o = _seq_attention(q, xk, xv, None, seq)
     return row_parallel(o.transpose(1, 2).reshape(B, S, -1), p["wo"], width)
 
 
@@ -414,27 +579,31 @@ def _make_cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
 def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
                 mode: str, cache: Optional[Dict] = None,
                 pos: Optional[int] = None,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None, cache_spec=None):
     """mode: 'train' | 'prefill' | 'decode' ('train' is prefill without
     the caches).  Returns (x, new_cache): the layer's cache leaves as
-    computed (attention decode returns the cache tensors it updated in
-    place; the recurrent kinds return new state tensors).  In an
+    computed (attention returns the cache tensors it wrote in place; the
+    recurrent kinds return new state tensors, whole where a mesh cuts
+    the cache: ``run_stages`` keeps this rank's block).  In an
     encoder-decoder stack, train and prefill compute the cross K/V from
     ``enc_out`` (prefill returns them for the cache), decode reads them
-    from the cache."""
+    from the cache.  ``cache_spec`` is the layer's ``cache_specs`` (name
+    → spec, the stack dim first) when the caches are a mesh rank's
+    blocks (``CacheBlocks``), else None."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     new_cache: Dict[str, Any] = {}
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind in ("attn", "local"):
+        seq = _seq_block(cache_spec, "k")
         if mode == "decode":
-            o, kv = _self_attn_decode(spec, cfg, p["attn"], h, cache, pos)
+            o, kv = _self_attn_decode(spec, cfg, p["attn"], h, cache, pos,
+                                      seq)
             new_cache.update(kv)
         else:
-            o = _self_attn_full(spec, cfg, p["attn"], h)
+            o, k, v = _self_attn_full(spec, cfg, p["attn"], h)
             if mode == "prefill":
-                new_cache.update(_prefill_kv(spec, cfg, p["attn"], h,
-                                             cache))
+                new_cache.update(_prefill_kv(spec, cfg, k, v, cache, seq))
     elif spec.kind == "mamba":
         if mode == "decode":
             o, st, cv = mamba_decode_step(p["mamba"], h, cache["state"],
@@ -460,7 +629,8 @@ def apply_layer(spec: LayerSpec, cfg: ModelConfig, p, x: torch.Tensor, *,
             xk, xv = _make_cross_kv(cfg, p["xattn"], enc_out)
         if mode != "train":
             new_cache.update({"xk": xk, "xv": xv})
-        x = x + _cross_attn(cfg, p["xattn"], hx, xk, xv)
+        seq = _seq_block(cache_spec, "xk") if mode == "decode" else None
+        x = x + _cross_attn(cfg, p["xattn"], hx, xk, xv, seq)
     if spec.kind != "mamba":
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         if spec.moe:
@@ -557,21 +727,27 @@ def _remat(cfg: ModelConfig, mode: str, x: torch.Tensor, params):
 
 def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                mode: str, caches=None, pos: Optional[int] = None,
-               enc_out: Optional[torch.Tensor] = None, stage_list=None):
+               enc_out: Optional[torch.Tensor] = None, stage_list=None,
+               serve_specs=None):
     """Run every stage's period ``count`` times (a Python loop where the
     reference scans).  ``caches`` is updated in place — prefill writes each
-    layer's recomputed K/V and recurrent state into it, decode the new
-    token's — and returned: (x, caches).  Mode 'train' takes no caches;
-    with ``cfg.remat``, when autograd records the forward, each layer runs
+    layer's K/V and recurrent state into it, decode the new token's — and
+    returned: (x, caches).  Mode 'train' takes no caches; with
+    ``cfg.remat``, when autograd records the forward, each layer runs
     under ``torch.utils.checkpoint`` (its activations are recomputed in
     the backward, as under the reference's ``jax.checkpoint``).  Under the
     train step on a mesh each train layer gathers its FSDP blocks first
-    (``_train_layer``).  Under the dry run's walker each stage is a loop
-    scope of ``count`` trips (``distributed/hlo_cost.py``)."""
+    (``_train_layer``); in prefill and decode ``serve_specs`` (the
+    ``param_specs`` a ``ParamBlocks`` carries) names the FSDP blocks each
+    layer gathers over ``data`` first (``tp.fsdp_layer``'s serve form),
+    and ``CacheBlocks`` caches are written as this rank's blocks.  Under
+    the dry run's walker each stage is a loop scope of ``count`` trips
+    (``distributed/hlo_cost.py``)."""
     stage_list = stage_list or cfg.stages()
     remat_kw = _remat(cfg, mode, x, stages_params)
     mesh = train_mesh() if mode == "train" else None
     scope, specs = train_scope(), _train_specs(cfg, mesh)
+    cspecs = getattr(caches, "specs", None)
     walker = hlo_cost.active()          # None unless a dry run traces
     for si, (stage, sp) in enumerate(zip(stage_list, stages_params)):
         if walker is not None:
@@ -590,15 +766,32 @@ def run_stages(cfg: ModelConfig, stages_params, x: torch.Tensor, *,
                         scope, None if specs is None else
                         specs["stages"][si][i])
                     continue
+                if serve_specs is not None:
+                    pp = fsdp_layer(pp, serve_specs["stages"][si][i], cfg)
                 cc = None if caches is None else layer_caches[i][j]
+                cs = None if cspecs is None else cspecs[si][i]
                 x, nc = apply_layer(spec, cfg, pp, x, mode=mode, cache=cc,
-                                    pos=pos, enc_out=enc_out)
+                                    pos=pos, enc_out=enc_out, cache_spec=cs)
                 for name, t in nc.items():
                     if t is not cc[name]:
-                        cc[name].copy_(t)
+                        cc[name].copy_(t if cs is None else _block_of(
+                            t, cc[name], Sharding(caches.mesh, cs[name])))
         if walker is not None:
             walker.exit_loop()
     return x, caches
+
+
+def _block_of(t: torch.Tensor, like: torch.Tensor,
+              sharding: Sharding) -> torch.Tensor:
+    """``t``, one layer's cache leaf as a layer computed it, as the block
+    ``like`` holds: narrowed to this rank's block on each dim the
+    sharding cuts where ``t`` is whole (the stack dim is gone; the batch
+    is already the rank's rows)."""
+    for i, _, _, idx in sharding.blocks():
+        d, blk = i - 1, like.shape[i - 1]
+        if t.shape[d] != blk:
+            t = t.narrow(d, idx * blk, blk)
+    return t
 
 
 # --------------------------------------------------------------------------
@@ -627,8 +820,9 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     if head is None:
         head = params["embed"].T
     if isinstance(head, dict):
-        return qmm(x, head).float()
-    y = col_input(x, head, cfg.vocab) @ head.to(x.dtype)
+        y = qmm(x, head)
+    else:
+        y = col_input(x, head, cfg.vocab) @ head.to(x.dtype)
     return gather_cols((y,), (cfg.vocab,))[0].float()
 
 
@@ -641,23 +835,26 @@ def _encoder_layer(cfg: ModelConfig, p, x: torch.Tensor, scope,
         p = fsdp_layer(p, specs, cfg)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         B, S, _ = h.shape
-        q, k, v = _qkv(cfg, p["attn"], h, torch.arange(S, device=h.device))
-        o = attention(q, k, v, causal=False, window=0)
+        q, k, v = _qkv(cfg, p["attn"], h, torch.arange(S, device=h.device),
+                       True)
+        o = attention(q, *_kv_heads(cfg, q, k, v), causal=False, window=0)
         x = x + row_parallel(o.transpose(1, 2).reshape(B, S, -1),
                              p["attn"]["wo"], cfg.n_heads * cfg.head_dim)
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
         return (x + mlp(p["mlp"], h2, "gelu", cfg.d_ff)).to(_cdt(cfg))
 
 
-def _run_encoder(cfg: ModelConfig, params,
-                 frames: torch.Tensor) -> torch.Tensor:
+def _run_encoder(cfg: ModelConfig, params, frames: torch.Tensor,
+                 serve_specs=None) -> torch.Tensor:
     """Whisper-style encoder over stub frame embeddings [B, F, d]: each
     layer (:func:`_encoder_layer`, under remat as the decoder's layers
-    are), then the encoder's final norm."""
+    are), then the encoder's final norm.  ``serve_specs``: as in
+    :func:`run_stages`."""
     enc = params["encoder"]["stages"][0][0]
     x = frames.to(_cdt(cfg))
     remat_kw = _remat(cfg, "train", x, enc)
-    scope, specs = train_scope(), _train_specs(cfg, train_mesh())
+    scope = train_scope()
+    specs = _train_specs(cfg, train_mesh()) or serve_specs
     for p in _per_layer(enc, cfg.n_enc_layers):
         x = _train_rematted(_encoder_layer, remat_kw, cfg, p, x, scope,
                             None if specs is None else
@@ -665,9 +862,9 @@ def _run_encoder(cfg: ModelConfig, params,
     return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
 
 
-def _inputs(cfg: ModelConfig, params, batch: Dict):
+def _inputs(cfg: ModelConfig, params, batch: Dict, serve_specs=None):
     """(decoder input embeddings, encoder output or None) of a batch."""
-    enc_out = (_run_encoder(cfg, params, batch["audio_frames"])
+    enc_out = (_run_encoder(cfg, params, batch["audio_frames"], serve_specs)
                if cfg.is_encdec else None)
     extra = batch["vision_embeds"] if cfg.n_vis_tokens else None
     return _embed_tokens(cfg, params, batch["tokens"], extra), enc_out
@@ -695,15 +892,31 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict) -> torch.Tensor:
     return (lse - ll).mean()
 
 
+def _whole_batch(rows: int) -> int:
+    """The whole batch of which ``rows`` are this rank's: times the batch
+    axes' width when the scope says they cut it (``axes.batch_cut``)."""
+    d = data_axis()
+    return rows * d[1] if d is not None and batch_cut() else rows
+
+
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, List]:
     """batch: tokens [B, S'] (+ audio_frames / vision_embeds) →
     (last-position logits [B, 1, V], caches).  ``max_len`` bounds the
-    positions, vision tokens included."""
-    x, enc_out = _inputs(cfg, params, batch)
-    caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    positions, vision tokens included.
+
+    On a mesh (inside ``logical_axes``, whose ``batch_cut`` says whether
+    the batch is this rank's block over the batch axes) ``params`` may be
+    ``shard_params`` blocks: each layer gathers its FSDP blocks, the
+    products are tensor-parallel, and the caches come back as this rank's
+    ``CacheBlocks``; the logits are this rank's rows, whole over the
+    vocab."""
+    specs = getattr(params, "specs", None)
+    x, enc_out = _inputs(cfg, params, batch, specs)
+    caches = init_cache(cfg, _whole_batch(x.shape[0]), max_len,
+                        device=x.device)
     x, caches = run_stages(cfg, params["stages"], x, mode="prefill",
-                           caches=caches, enc_out=enc_out)
+                           caches=caches, enc_out=enc_out, serve_specs=specs)
     return _logits(cfg, params, x[:, -1:]), caches
 
 
@@ -711,8 +924,11 @@ def decode_step(cfg: ModelConfig, params, caches, token: torch.Tensor,
                 pos: int) -> Tuple[torch.Tensor, List]:
     """token [B, 1] int; pos int → (logits [B, 1, V], caches).  The cache
     tensors are updated in place and returned; an encoder-decoder's
-    cross-attention reads the K/V prefill left there."""
+    cross-attention reads the K/V prefill left there.  On a mesh as
+    :func:`prefill`: ``CacheBlocks`` caches cut over their sequence make
+    the attention sequence-parallel (``_self_attn_decode``)."""
     x = _embed_tokens(cfg, params, token)
     x, caches = run_stages(cfg, params["stages"], x, mode="decode",
-                           caches=caches, pos=int(pos))
+                           caches=caches, pos=int(pos),
+                           serve_specs=getattr(params, "specs", None))
     return _logits(cfg, params, x), caches

@@ -15,8 +15,17 @@ column-major (each [K, N] matrix is the transpose of a contiguous
 while a row-major weight was refused at M = 17-48 with K = 64 (torch 2.11,
 CUDA 12.8, on an H100).
 
-The reference's ``abstract`` mode (shape-only trees for the XLA dry run) has
-no counterpart here: the port has no abstract parameter trees.
+On a device mesh a product by a ``model`` row block of an int8 weight
+(``wo``, ``w2``: ``models/tp.py::row_parallel``) is :func:`qmm_row_block`:
+the activation's block is quantized with the whole contraction's row
+scale (one all-reduce max of the per-row |x| max over ``model``) and the
+int32 accumulators are summed over ``model`` before the scales apply, so
+the product is bit-equal to :func:`qmm` of the whole operands on one
+device.  A column block takes the whole activation and is :func:`qmm`.
+
+The reference's ``abstract`` mode (shape-only trees for the XLA dry run)
+is a meta tree here: ``quantize_serving_params`` of ``abstract_params``
+gives meta ``{"q8", "s"}`` leaves of the same shapes, dtypes and layout.
 """
 from __future__ import annotations
 
@@ -46,7 +55,8 @@ def _column_major(q: torch.Tensor) -> torch.Tensor:
 def quantize_serving_params(params):
     """The params tree with every target leaf (of 2 dims or more, never
     under ``moe``) replaced by its ``{"q8", "s"}`` form; other leaves are
-    the same tensors."""
+    the same tensors.  A meta leaf gives meta ``{"q8", "s"}`` leaves (the
+    reference's ``abstract=True``: the dry run's ``--quantized`` cells)."""
 
     def tx(names, node):
         if isinstance(node, dict):
@@ -98,15 +108,39 @@ def _int_mm(xi: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
     return out[:M, :N] if pm or pn else out
 
 
+def _quantize_rows(x2: torch.Tensor, amax: torch.Tensor):
+    """(int8 codes, per-row scale) of the float32 rows ``x2`` whose
+    per-row |x| max is ``amax``."""
+    xs = div_exact(torch.clamp(amax, min=1e-8), 127.0)
+    xi = torch.clamp(torch.round(x2 / xs[:, None]), -127, 127
+                     ).to(torch.int8)
+    return xi, xs
+
+
+def _scaled(acc: torch.Tensor, xs: torch.Tensor, w, x: torch.Tensor):
+    y = acc.to(torch.float32) * xs[:, None] * w["s"][None, :]
+    return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+
 def qmm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for dense or quantized (int8 + per-column scale) weights."""
     if not is_quantized(w):
         return matmul(x, w)
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1]).to(torch.float32)
-    xs = div_exact(torch.clamp(x2.abs().amax(dim=-1), min=1e-8), 127.0)
-    xi = torch.clamp(torch.round(x2 / xs[:, None]), -127, 127
-                     ).to(torch.int8)
-    acc = _int_mm(xi, w["q8"])
-    y = acc.to(torch.float32) * xs[:, None] * w["s"][None, :]
-    return y.reshape(*shape[:-1], -1).to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    xi, xs = _quantize_rows(x2, x2.abs().amax(dim=-1))
+    return _scaled(_int_mm(xi, w["q8"]), xs, w, x)
+
+
+def qmm_row_block(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """``x @ w`` for an int8 weight ``w`` that is this rank's ``model``
+    block of rows and ``x`` the matching block of the activation's
+    columns, summed over ``model``: the rows are quantized with the whole
+    contraction's scale (one all-reduce max of the per-row |x| max) and
+    the int32 accumulators summed (one all-reduce) before the scales
+    apply.  Integer sums are exact, so the result is bit-equal to
+    :func:`qmm` of the whole ``x`` and ``w`` on one device."""
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    amax = mesh.all_reduce(x2.abs().amax(dim=-1), "model", op="max")
+    xi, xs = _quantize_rows(x2, amax)
+    acc = mesh.all_reduce(_int_mm(xi, w["q8"]).contiguous(), "model")
+    return _scaled(acc, xs, w, x)

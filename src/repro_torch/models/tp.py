@@ -4,8 +4,10 @@ On a device mesh (inside ``distributed.axes.logical_axes``) a weight cut
 by ``distributed/sharding.py::param_specs`` is this rank's block over
 ``model``.  :func:`row_parallel` multiplies by a row block and
 :func:`vocab_embed` looks tokens up in a vocab-sharded table; each ends
-in one all-reduce.  Under no scope, or on a 1-wide ``model`` axis, each
-is the plain op it replaces.
+in one all-reduce (an int8 row block in two: the row scale's max and the
+int32 sum, ``quantized.qmm_row_block``).  :func:`gather_cols` gathers
+column blocks whole in one all-gather.  Under no scope, or on a 1-wide
+``model`` axis, each is the plain op it replaces.
 
 Those are the serve path's forms: collectives in place, nothing to
 differentiate.  Under the train step's ``spmd_train`` scope on a mesh
@@ -34,11 +36,11 @@ from __future__ import annotations
 import torch
 
 from ..distributed.axes import (data_axis, model_axis, to_block, to_whole,
-                                train_mesh)
+                                to_whole_last, train_mesh)
 from ..distributed.sharding import fsdp_axes_of
 from ..launch.mesh import (fsdp_gather, from_model, gather_model,
                            split_model, to_model)
-from .quantized import qmm
+from .quantized import is_quantized, qmm, qmm_row_block
 
 
 def _rows(w) -> int:
@@ -72,11 +74,11 @@ def gather_cols(xs, wholes):
     """Products by column blocks whole along their last dim: under the
     train step on a mesh one ``gather_model`` for every block among
     ``xs`` (q, k and v of one layer: one all-gather), a tensor already
-    whole left as it is; elsewhere ``xs`` as they are (the serve step
-    gathers its own)."""
+    whole left as it is; in a serve step on a mesh the same by the
+    in-place ``axes.to_whole_last``; elsewhere ``xs`` as they are."""
     m = train_mesh()
     if m is None:
-        return tuple(xs)
+        return to_whole_last(xs, wholes)
     blk = [x.shape[-1] != w for x, w in zip(xs, wholes)]
     if not any(blk):
         return tuple(xs)
@@ -108,6 +110,8 @@ def row_parallel(x: torch.Tensor, w, whole: int) -> torch.Tensor:
     m = model_axis()
     if m is None or _rows(w) == whole:
         return qmm(to_whole(x, -1, whole), w)
+    if is_quantized(w):
+        return qmm_row_block(to_block(x, -1, whole), w, m[0])
     y = qmm(to_block(x, -1, whole), w)
     return m[0].all_reduce(y.contiguous())
 

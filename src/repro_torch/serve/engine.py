@@ -97,11 +97,16 @@ step under each on meta (:func:`pick_layout`, the step cost walker of
 keeps ``shard`` unless ``replicate`` counts fewer collective bytes, the
 reference's rule; ``layout_report`` says what it counted.
 
+Int8 (``q8``) weights serve on any mesh: a ``model`` row block (``wo``,
+``w2``) quantizes its activation block with the whole contraction's row
+scale and sums the int32 products over ``model``
+(``models/quantized.py::qmm_row_block``), so the meshed step's products
+are the one-device ones.
+
 A ``1 x 1`` mesh makes no collective; it runs the same ops as
 ``mesh=None`` except that an MoE layer dispatches its tokens in one group
 where the local path takes many.  Refused: the kernel on any mesh of
-more than one device (as in the reference), and, naming ROADMAP.md §
-A15b-iii, which lifts it, int8 weights on a ``model`` axis wider than 1.
+more than one device (as in the reference).
 """
 from __future__ import annotations
 
@@ -400,11 +405,10 @@ def _update_rows(dst: torch.Tensor, new: torch.Tensor,
     dst.copy_(torch.where(mask, new.to(dst.dtype), dst))
 
 
-def _check_mesh(params, mesh, dev: torch.device, attn_impl: str) -> None:
+def _check_mesh(mesh, dev: torch.device, attn_impl: str) -> None:
     """The mesh refusals: the kernel on a mesh of more than one device
-    (the reference's own), a mesh whose processes hold other devices than
-    the engine's, and int8 weights on a ``model`` axis wider than 1,
-    naming ROADMAP.md § A15b-iii, which lifts it."""
+    (the reference's own) and a mesh whose processes hold other devices
+    than the engine's."""
     if mesh.size > 1 and attn_impl == "kernel":
         raise ValueError(
             "attn_impl='kernel' is not sharding-aware: the paged-attention "
@@ -414,12 +418,6 @@ def _check_mesh(params, mesh, dev: torch.device, attn_impl: str) -> None:
     if mesh.size > 1 and mesh.device_type != dev.type:
         raise ValueError(f"the mesh's processes hold {mesh.device_type} "
                          f"devices, the engine runs on {dev}")
-    if mesh.shape["model"] > 1 and _has_q8(params):
-        raise NotImplementedError(
-            "int8 (q8) weights on a 'model' axis wider than 1: the "
-            "activation's per-row int8 scale spans the whole "
-            "contraction, which a row block cannot see "
-            "(ROADMAP.md § A15b-iii)")
 
 
 def pool_geometry(cfg: ModelConfig, geom: StackGeom, n_pages: int,
@@ -497,15 +495,6 @@ def trace_token_step(cfg: ModelConfig, geom: StackGeom, mesh_axes: Dict,
     return cost, mesh
 
 
-def _has_q8(tree) -> bool:
-    """Whether a params tree holds an int8 ``{'q8', 's'}`` leaf."""
-    if isinstance(tree, dict):
-        return "q8" in tree or any(_has_q8(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(_has_q8(v) for v in tree)
-    return False
-
-
 # --------------------------------------------------------------------------
 # the engine
 # --------------------------------------------------------------------------
@@ -546,7 +535,7 @@ class PagedEngine:
         dev = resolve_device(device)
         n_dev = 1 if mesh is None else mesh.size
         if mesh is not None:
-            _check_mesh(params, mesh, dev, attn_impl)
+            _check_mesh(mesh, dev, attn_impl)
             if cfg.n_experts > 0:
                 # no token may be capacity-dropped on a mesh where the
                 # unmeshed path keeps it: cap >= T_loc holds iff

@@ -27,7 +27,7 @@ from ..kernels.paged_attention import paged_decode_attention
 from ..models.config import ModelConfig
 from ..models.layers import mlp, rms_norm, rope
 from ..models.model import _logits, _per_layer
-from ..models.quantized import matmul
+from ..models.quantized import matmul, qmm
 
 
 class PagedServer:
@@ -108,9 +108,7 @@ def _qkv_ragged(cfg: ModelConfig, p, x: torch.Tensor,
     all-gather."""
     B, S, _ = x.shape
     KV, hd = cfg.n_kv, cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q, k, v = (qmm(x, p[n]) for n in ("wq", "wk", "wv"))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if not heads_local:                 # one all-gather for the blocks

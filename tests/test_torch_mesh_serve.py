@@ -605,14 +605,25 @@ def test_host_mesh_needs_its_processes():
 
 
 def test_q8_refused_on_a_wide_model_axis():
-    """int8 (q8) weights on a ``model`` axis wider than 1 are refused,
-    naming ROADMAP.md § A15b (a 1x2 rank built without a process group:
-    the refusal comes before any collective)."""
+    """int8 (q8) weights on a ``model`` axis wider than 1 are taken: a 1x2
+    rank (built without a process group: building makes no collective)
+    holds each ``q8`` leaf's ``model`` block, columns of ``wq`` and rows
+    of ``wo`` and ``w2``, with the scales of its columns.  Its tokens
+    equal the unmeshed int8 engine's on gloo
+    (``test_torch_mesh_serve_dense.py``)."""
     from repro_torch.models.quantized import quantize_serving_params
     cfg, tp = _port("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="A15b"):
-        W._engine(cfg, quantize_serving_params(tp), Mesh(1, 2, "cpu"),
-                  "shard")
+    q = quantize_serving_params(tp)
+    eng = W._engine(cfg, q, Mesh(1, 2, "cpu"), "shard")
+    layer, whole = (eng.params["stages"][0][0], q["stages"][0][0])
+    for name, dim in (("wq", -1), ("wo", -2)):
+        got, want = layer["attn"][name], whole["attn"][name]
+        assert got["q8"].dtype == torch.int8
+        assert got["q8"].shape[dim] * 2 == want["q8"].shape[dim]
+    assert layer["mlp"]["w2"]["q8"].shape[-2] * 2 == \
+        whole["mlp"]["w2"]["q8"].shape[-2]
+    assert layer["attn"]["wq"]["s"].shape[-1] * 2 == \
+        whole["attn"]["wq"]["s"].shape[-1]
 
 
 def test_moe_ep_on_one_device():
